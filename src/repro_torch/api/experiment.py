@@ -1,0 +1,138 @@
+"""The ``Experiment`` facade (``repro.api.experiment``).
+
+An ``Experiment`` wires model / data source / sampler / scoring engine /
+optimizer together from one ``RunConfig`` and runs the ``TrainLoop``:
+
+    import repro_torch
+    state, history = repro_torch.train("llama3.2-3b", preset="prod",
+                                       overrides={"steps": 3})
+
+Everything runs on a CUDA device unless the caller passes ``device="cpu"``
+(as the CPU tests do); with no GPU present the default raises. Meshes,
+checkpoints, straggler handling and the elastic runtime are not ported
+yet.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch import obs
+from repro_torch.api.config import (ConfigError, apply_overrides, build_run,
+                                    get_preset, parse_cli, truthy)
+from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.core.is_train import StepSpec, build_step, train_state_init
+from repro_torch.data.pipeline import DataPlane, PipelineState, SyntheticLM
+from repro_torch.models.lm import LM
+from repro_torch.optim.api import get_optimizer
+from repro_torch.sampler.schemes import make_sampler
+from repro_torch.scoring.engine import ScoreEngine
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means the GPU. A CUDA device that is not there raises:
+    the port never drops to the CPU unless asked to."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "repro_torch runs on a CUDA device and torch finds none; pass "
+            "device='cpu' to run on the CPU explicitly")
+    return device
+
+
+def _make_source(run: RunConfig, kind):
+    """"lm" builds the synthetic LM source; source objects pass through."""
+    if kind is None or kind == "lm":
+        return SyntheticLM(run.model.vocab_size, run.shape.seq_len,
+                           seed=run.seed)
+    if hasattr(kind, "gather"):
+        return kind
+    raise ConfigError(f"unknown data source {kind!r} (expected 'lm' or a "
+                      f"source object)")
+
+
+def _resolve_run(cfg, preset=None, overrides=None) -> RunConfig:
+    """str arch id | ModelConfig | RunConfig (+ preset + overrides) ->
+    RunConfig."""
+    if isinstance(cfg, RunConfig):
+        if preset is not None:
+            raise ConfigError("preset and a full RunConfig are exclusive")
+        run = cfg
+    elif isinstance(cfg, ModelConfig):
+        run = get_preset(preset)(cfg) if preset else RunConfig(model=cfg)
+    else:
+        run = build_run(arch=cfg, preset=preset)
+    return apply_overrides(run, overrides)
+
+
+class Experiment:
+    """Model + source + sampler + engine + loop, from one config."""
+
+    def __init__(self, run_cfg, source=None, device=None, hooks=()):
+        if run_cfg.ckpt_dir:
+            raise ConfigError("checkpointing is not ported yet (ckpt_dir "
+                              "must be unset)")
+        self.run = run_cfg
+        self.device = resolve_device(device)
+        obs.configure(run_cfg.obs)
+        gen = torch.Generator(device=self.device).manual_seed(run_cfg.seed)
+        self.lm = LM(run_cfg.model, device=self.device, generator=gen)
+        self.opt = get_optimizer(run_cfg.optim)
+        self.source = _make_source(run_cfg, source)
+        self.sampler = make_sampler(run_cfg, self.source)
+        self.engine = ScoreEngine(self.lm, run_cfg)
+        self.sampler.bind_engine(self.engine)
+        self.default_hooks = list(hooks)
+        # the host-chosen-batch step: the presample samplers select on
+        # the host and hand it b rows + the τ flag
+        self.step_fn = build_step(self.lm, run_cfg, self.opt,
+                                  StepSpec("host"))
+
+    @classmethod
+    def from_flags(cls, argv=None, **kw):
+        """Build an ``Experiment`` from CLI flags: reserved ``--arch <id>``
+        (required), ``--preset <name>``, ``--smoke``, ``--source lm`` and
+        ``--device <torch device>``; every other flag is a dotted
+        ``RunConfig`` path (``--steps 3``, ``--shape.seq_len=1024``)."""
+        import sys
+        argv = list(sys.argv[1:]) if argv is None else list(argv)
+        flags = parse_cli(argv)
+        arch = flags.pop("arch", None)
+        preset = flags.pop("preset", None)
+        if truthy(flags.pop("smoke", False)):
+            preset = preset or "smoke"
+        source = flags.pop("source", "lm")
+        device = flags.pop("device", None)
+        if arch is None:
+            raise ConfigError("--arch is required (one of "
+                              "repro_torch.configs.ARCHS)")
+        run = build_run(arch=arch, preset=preset, overrides=flags)
+        return cls(run, source=source, device=device, **kw)
+
+    def make_plane(self) -> DataPlane:
+        return DataPlane(self.sampler, self.device)
+
+    def resume_or_init(self):
+        """(train state, pipeline state, first step): a fresh start, as
+        checkpoint resume is not ported yet."""
+        return train_state_init(self.lm, self.opt), PipelineState(), 0
+
+    def fit(self, steps=None, log_every=None, hooks=()):
+        """Train via the loop. Returns ``(state, history)``."""
+        from repro_torch.api.hooks import LoggingHook, MetricsHistoryHook
+        from repro_torch.api.loop import TrainLoop
+        hs = [MetricsHistoryHook()]
+        if log_every:
+            hs.append(LoggingHook(every=log_every))
+        hs += list(self.default_hooks) + list(hooks)
+        return TrainLoop(self, hs).run(steps)
+
+
+def train(cfg="lm-tiny", *, preset=None, overrides=None, source=None,
+          device=None, steps=None, hooks=(), log_every=None):
+    """Train in one call. ``cfg`` is an arch id, a ``ModelConfig`` or a
+    ``RunConfig``; ``preset`` names a registered cell (``smoke``,
+    ``prod``); ``overrides`` is a dotted-path dict. Returns ``(state,
+    history)``."""
+    run = _resolve_run(cfg, preset, overrides)
+    exp = Experiment(run, source=source, device=device, hooks=hooks)
+    return exp.fit(steps=steps, log_every=log_every)

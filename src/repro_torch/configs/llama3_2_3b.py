@@ -1,0 +1,16 @@
+"""llama3.2-3b [dense] small llama3. [hf:meta-llama/Llama-3.2-1B; unverified]
+28L d_model=3072 24H (kv=8) d_ff=8192 vocab=128256."""
+from repro_torch.configs.base import ATTN, ModelConfig, Segment
+
+CONFIG = ModelConfig(
+    name="llama3.2-3b",
+    family="dense",
+    d_model=3072,
+    n_heads=24,
+    n_kv_heads=8,
+    d_ff=8192,
+    vocab_size=128256,
+    rope_theta=500_000.0,
+    segments=(Segment((ATTN,), 28),),
+    tie_embeddings=True,
+)

@@ -1,0 +1,4 @@
+"""Presample selection: schemes, score store, assembly."""
+from repro_torch.sampler.schemes import make_sampler
+
+__all__ = ["make_sampler"]

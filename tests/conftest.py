@@ -83,3 +83,9 @@ except ImportError:
     mod.strategies = st
     sys.modules["hypothesis"] = mod
     sys.modules["hypothesis.strategies"] = st
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs an NVIDIA Hopper GPU and nvcc; skips elsewhere "
+        "(run them on the card: python -m pytest -m gpu tests/)")
