@@ -7,25 +7,46 @@ of that path against its plain PyTorch version.
 Phases, in order; each raises on failure, so the process exits non-zero:
 
 1. card     — the GPU's name and power limit (``nvidia-smi``), CUDA version;
-2. build    — compile every kernel from the sources in this checkout;
+2. build    — compile every kernel from the sources in this checkout, one
+              ``nvcc`` per source, all started together;
 3. K4       — ``ce_score_block`` against its plain version on the card:
               the slice's (12, 128, 128256) bf16 chunk view, a ragged
               shape, row blocks of 8 with dead blocks and label −1, f32;
 4. prune    — ``pruned_pool_score`` on the card: survivors bitwise equal
               to the unpruned chunked pass; alive mask and receipt equal
               to the plain version's run on the same tensors;
-5. lm-tiny  — the slice at lm-tiny on the card against the same run on
-              the CPU (same params, same plans, losses to 1e-3);
+5. lm-tiny  — the prod slice at lm-tiny on the card against the same run
+              on the CPU (same params, same plans, losses to 1e-3);
 6. slice    — ``repro_torch.train("llama3.2-3b", preset="prod", ...)``:
-              full width and depth, the cuts printed, ``STEPS`` steps; K4's
-              launch count is zeroed just before and read just after.
-              Steps 0, 1 and 3 are timed; step ``PROFILED`` runs under
-              ``torch.profiler``: where a steady step's device time goes,
-              by kernel group and by name, and the device's idle share
-              against step 1's unprofiled wall time (the full table goes
-              to ``chiprun_out/profile_step.txt``);
+              full width and depth, the cuts printed, ``STEPS`` steps; the
+              kernels' launch counts are zeroed just before and read just
+              after (K4: 8 a step). Steps 0, 1 and 3 are timed; step
+              ``PROFILED`` runs under ``torch.profiler``: where a steady
+              step's device time goes, by kernel group and by name, and
+              the device's idle share against step 1's unprofiled wall
+              time (the full table goes to ``chiprun_out/profile_step.txt``);
 7. timing   — K4 per launch (CUDA events) beside its plain version and its
-              bound at the slice's shape.
+              bound at the slice's shape;
+8. K6       — ``topk_race_keys`` against its plain version on the card:
+              the warm 2²⁴ store of the history slice, a ragged 3-host
+              shard with unseen and padded lanes, and the CPU test's cases;
+              worst key error against ``K6_RTOL``, bottom-k slots equal;
+9. sharded  — ``sample_sharded`` with K6 on the warm 2²⁴ store against
+              K6's plain version (equal gids, weights to 1e-5 relative),
+              and beside it the float64 numpy loop's draws (measured, see
+              ``check_sharded``);
+10. history lm-tiny — ``history`` (sharded and gather) at lm-tiny on the
+              card against the CPU run (plans and losses to 1e-3);
+11. history slice — ``repro_torch.train("llama3.2-3b", preset="prod",
+              overrides={"sampler.scheme": "history",
+              "imp.selection_impl": "sharded", ...})`` at full width and
+              depth over a 2²⁴-sequence source whose store is warmed at
+              loop start (the cut printed); counts zeroed just before and
+              read just after (K6: one launch a plan); per step the loss,
+              store τ, gate, weights, the plan's split (stats reduction,
+              host-to-card transfer, K6, bottom-k), wall time, peak memory;
+12. K6 timing — K6 per launch (CUDA events) at n = 2²⁴ beside its plain
+              version, the bottom-k, the transfer and its bound.
 
 The second-to-last lines are the card line and the ``{"kernels": ...}``
 line; the last line is ``{"ok": true, "device": {...}}``. Also written to
@@ -40,8 +61,10 @@ import math
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
@@ -52,6 +75,11 @@ TOL = dict(rtol=1e-4, atol=1e-3)  # kernel vs plain, f32 row sums over ≤128
 BATCH = 4      # global batch (prod: 256); the pool is 3 × BATCH = 12 rows
 STEPS = 4      # prod: 1000; steps 0, 1 and 3 timed, step PROFILED profiled
 PROFILED = 2   # a steady step: it updates and scores the next pool
+N_STORE = 2 ** 24  # the history slice's dataset: 16.8 M sequences of 1024
+WARM_FRAC = 0.9    # share of the store warmed at loop start (the rest unseen)
+K6_RTOL = 2e-6     # kernel vs plain keys: both f32, IEEE logf/expf on the
+                   # card; a last-ulp difference in log(s) grows by |log s|/T
+                   # through the exp
 
 
 def log(*a):
@@ -69,9 +97,12 @@ def card():
 
 
 def build_all(kernels):
+    """One nvcc per kernel, all started together."""
     from repro_torch.kernels import build
     t0 = time.perf_counter()
-    libs = [build.build(k["name"], k["sources"]) for k in kernels]
+    with ThreadPoolExecutor(len(kernels)) as pool:
+        libs = list(pool.map(lambda k: build.build(k["name"], k["sources"]),
+                             kernels))
     dt = time.perf_counter() - t0
     for k, so in zip(kernels, libs):
         log(f"[build] {k['name']}: {so.relative_to(ROOT)}")
@@ -204,6 +235,7 @@ def run_slice(out):
     import repro_torch
     from repro_torch.api import Hook
     from repro_torch.kernels.ce_score import ce_score as k4
+    from repro_torch.kernels.topk_keys import topk_keys as k6
     from torch.profiler import ProfilerActivity, profile
     overrides = {"shape.global_batch": BATCH, "shape.seq_len": 1024,
                  "steps": STEPS, "obs.enabled": False}
@@ -243,7 +275,7 @@ def run_slice(out):
             log("[slice] " + json.dumps(row))
 
     hook = StepLog()
-    k4.launches = 0
+    k4.launches = k6.launches = 0
     t0 = time.perf_counter()
     _, history = repro_torch.train("llama3.2-3b", preset="prod",
                                    overrides=overrides, hooks=[hook])
@@ -253,7 +285,8 @@ def run_slice(out):
     assert len(history) == STEPS
     assert all(math.isfinite(h["loss"]) for h in history), history
     log(f"[slice] {STEPS} steps in {total:.1f} s (model build included); "
-        f"K4 launches {launches} ({launches / STEPS:g} per step)")
+        f"K4 launches {launches} ({launches / STEPS:g} per step), K6 "
+        f"{k6.launches} (not on this path)")
     assert launches == 8 * STEPS, "K4 was not launched 8 times per step"
     breakdown = step_breakdown(hook.prof, hook.rows, out)
     gc.collect()
@@ -332,16 +365,333 @@ def time_k4(gen):
     return ms, plain_ms, bound_s * 1e3, by
 
 
+# ---------------------------------------------------------------------------
+# slice 2: the history score-memory scheme, sharded selection, K6
+# ---------------------------------------------------------------------------
+def warm_fill(store, seed=0):
+    """The history slice's warm store: seeded log-normal scores for
+    ``WARM_FRAC`` of the ids, written through ``ScoreStore.update`` — a
+    stand-in for an epoch of warm-up (or a restored checkpoint, not ported
+    yet); the other ids stay unseen, so K6's fill path runs too."""
+    rng = np.random.default_rng(seed)
+    ids = np.flatnonzero(rng.random(store.n) < WARM_FRAC)
+    store.update(ids, rng.lognormal(0.0, 1.0, ids.size).astype(np.float32))
+
+
+def _warm_store():
+    from repro_torch.sampler.store import ScoreStore
+    store = ScoreStore(N_STORE)
+    warm_fill(store)
+    return store
+
+
+def _k6_case(sc, seen, n_global, temp, h, H, k, gen_seed):
+    """One shard on the card: the kernel's and the plain version's bottom-k
+    (keys, slots), and every slot's key by both."""
+    from repro_torch.kernels.topk_keys.ops import race_keys, topk_race_keys
+    from repro_torch.kernels.topk_keys.ref import race_keys_ref
+    from repro_torch.sampler import selection
+    dist = selection.GlobalDist(selection.shard_stats(sc, seen > 0, temp),
+                                n_global, 0.1, temp)
+    args = (torch.from_numpy(sc).cuda(),
+            torch.from_numpy(seen.astype(np.float32)).cuda(),
+            selection.hash_context(gen_seed, 9173, 7), dist.fill_pow,
+            dist.total)
+    kw = dict(host_id=h, n_hosts=H, n_global=dist.n, smoothing=0.1,
+              inv_temp=dist.inv_t)
+    gk, gs = topk_race_keys(*args, k=k, **kw)
+    pk, ps = topk_race_keys(*args, k=k, interpret=True, **kw)
+    allk, allp = race_keys(*args, **kw), race_keys_ref(*args, **kw)
+    torch.cuda.synchronize()
+    return gk, gs, pk, ps, allk, allp
+
+
+def check_k6(store):
+    """Phase 8. Returns (worst abs key error, worst rel key error)."""
+    rng = np.random.default_rng(1)
+    cases = [("slice: warm store n=2^24, 1 host, T=1", store.scores,
+              store.seen.astype(np.float32), N_STORE, 1.0, 0, 1, BATCH + 1)]
+    n = 5_000_011
+    sc = rng.lognormal(0.0, 1.0, n).astype(np.float32)
+    seen = (rng.random(n) < 0.7).astype(np.float32)
+    seen[-7:] = -1.0
+    cases.append(("ragged n=5000011, host 1 of 3, T=0.5, unseen + 7 padded",
+                  sc, seen, 3 * n, 0.5, 1, 3, 17))
+    # the CPU test's cases (tests/test_torch_topk_keys.py)
+    for n, h, H, temp, pad in ((1, 0, 1, 1.0, 0), (7, 0, 1, 0.5, 0),
+                               (7, 1, 3, 1.0, 2), (1000, 1, 3, 0.5, 0),
+                               (1000, 0, 1, 1.0, 24), (4099, 1, 3, 0.5, 3),
+                               (4099, 0, 1, 1.0, 0)):
+        r = np.random.default_rng(n + pad)
+        sc = r.lognormal(0.0, 1.0, n).astype(np.float32)
+        seen = (r.random(n) < 0.7).astype(np.float32)
+        if pad:
+            seen[n - pad:] = -1.0
+        cases.append((f"n={n}, host {h} of {H}, T={temp}, {pad} padded", sc,
+                      seen, n * H, temp, h, H, min(16, n - pad)))
+    worst_abs = worst_rel = 0.0
+    for i, (name, sc, seen, n_global, temp, h, H, k) in enumerate(cases):
+        gk, gs, pk, ps, allk, allp = _k6_case(sc, seen, n_global, temp, h, H,
+                                              k, i)
+        live = torch.isfinite(allp)
+        assert torch.equal(torch.isfinite(allk), live), "padded lanes differ"
+        torch.testing.assert_close(allk[live], allp[live], rtol=K6_RTOL,
+                                   atol=0)
+        assert torch.equal(gs, ps), f"{name}: bottom-k slots differ"
+        torch.testing.assert_close(gk, pk, rtol=K6_RTOL, atol=0)
+        err = (allk[live] - allp[live]).abs()
+        # a key of 0 (u rounded to 1) has no relative error to speak of
+        tiny = torch.finfo(torch.float32).tiny
+        rel = float((err / allp[live].abs().clamp(min=tiny)).max()) \
+            if live.any() else 0.0
+        ab = float(err.max()) if live.any() else 0.0
+        worst_abs, worst_rel = max(worst_abs, ab), max(worst_rel, rel)
+        log(f"[k6] {name}: max |kernel - plain| = {ab:.3e} (relative "
+            f"{rel:.3e}, rtol {K6_RTOL}); bottom-{k} slots equal")
+        del gk, gs, pk, ps, allk, allp
+    torch.cuda.empty_cache()
+    return worst_abs, worst_rel
+
+
+def check_sharded(store, draws=3):
+    """Phase 9: the sharded draw on the warm 2^24 store, at the slice's k.
+
+    Held: K6 on the card against K6's plain version (the same float32
+    formulation, on the CPU) — equal gids, weights to 1e-5 relative.
+    Measured beside it: the float64 numpy loop on the same draws. The
+    float32 uniform u = (h>>8)·2^-24 + 2^-25 rounds near u → 1 to steps of
+    2^-24, so E = −log u, whose smallest values decide a bottom-5 race over
+    2^24 slots (E ~ 1e-7), is quantized by up to half its size: the two
+    formulations can pick other winners, and their thresholds differ.
+    Returns the loop comparison."""
+    from repro_torch.sampler import selection
+    dist = selection.GlobalDist(selection.shard_stats(store.scores,
+                                                      store.seen, 1.0),
+                                store.n, 0.1, 1.0)
+    same_sets, worst_w = 0, 0.0
+    for step in range(draws):
+        kw = dict(seed=0, salt=9173, step=step, use_kernel=True)
+        t0 = time.perf_counter()
+        gk = selection.sample_sharded(store, dist, BATCH, device="cuda", **kw)
+        t1 = time.perf_counter()
+        gp = selection.sample_sharded(store, dist, BATCH, device="cpu", **kw)
+        t2 = time.perf_counter()
+        gn = selection.sample_sharded(store, dist, BATCH, device="cuda",
+                                      **dict(kw, use_kernel=False))
+        t3 = time.perf_counter()
+        assert np.array_equal(gk[0], gp[0]), (gk[0], gp[0])
+        np.testing.assert_allclose(gk[2], gp[2], rtol=1e-5, atol=0)
+        same = set(gk[0].tolist()) == set(gn[0].tolist())
+        w_dev = float(np.max(np.abs(gk[2] / gn[2] - 1))) if same else None
+        same_sets += same
+        worst_w = max(worst_w, w_dev or 0.0)
+        log(f"[sharded] draw {step}: K6 gids {gk[0].tolist()} = plain "
+            f"version's, weights within 1e-5 (threshold {gk[3]:.6g}); "
+            f"float64 loop gids {gn[0].tolist()} (same set: {same}; weights "
+            f"off by {w_dev}; threshold {gn[3]:.6g}); K6 draw "
+            f"{t1 - t0:.3f} s, plain on the CPU {t2 - t1:.3f} s, numpy loop "
+            f"{t3 - t2:.3f} s")
+    log(f"[sharded] K6 and the float64 loop chose the same set in "
+        f"{same_sets} of {draws} draws; worst weight deviation where they "
+        f"did: {worst_w:.3e}")
+    return {"draws": draws, "same_sets": same_sets, "worst_w_dev": worst_w}
+
+
+def check_history_lm_tiny():
+    """Phase 10: ``history`` at lm-tiny on the card (plans through K6)
+    against the same run on the CPU (the numpy loop), from the same params
+    and the same warm 32-example store: plans and losses to 1e-3."""
+    from repro_torch.api import Experiment, Hook, build_run
+    from repro_torch.checkpoint import interop
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels.topk_keys import topk_keys as k6
+
+    def warm(store):
+        store.update([17, 21, 26, 30], [0.6, 8.0, 2.5, 1.1])
+
+    class Plans(Hook):
+        def __init__(self):
+            self.plans = []
+
+        def on_loop_start(self, loop, start, steps):
+            warm(loop.exp.sampler.store)
+
+        def on_step_start(self, loop, step, batch, meta):
+            self.plans.append((meta.gids.copy(), meta.weights.copy()))
+
+    for impl in ("sharded", "gather"):
+        run = build_run("lm-tiny", preset="prod", overrides={
+            "sampler.scheme": "history", "imp.selection_impl": impl,
+            "sampler.min_coverage": 0.2, "sampler.tau_th": 1.001,
+            "sampler.gate_every": 1, "shape.seq_len": 16,
+            "shape.global_batch": 4, "steps": 6, "obs.enabled": False})
+        src = lambda: SyntheticLM(run.model.vocab_size, 16, n_examples=32,
+                                  seed=run.seed)
+        gpu = Experiment(run, source=src())
+        cpu = Experiment(run, source=src(), device="cpu")
+        interop.load_params(cpu.lm, interop.params_to_numpy(gpu.lm))
+        hg, hc = Plans(), Plans()
+        before = k6.launches
+        _, mg = gpu.fit(hooks=[hg])
+        launched = k6.launches - before
+        _, mc = cpu.fit(hooks=[hc])
+        for (g, w), (gc_, wc) in zip(hg.plans, hc.plans):
+            assert np.array_equal(g, gc_), (g, gc_)
+            np.testing.assert_allclose(w, wc, rtol=1e-3)
+        for a, b in zip(mg, mc):
+            assert math.isfinite(a["loss"])
+            assert abs(a["loss"] - b["loss"]) < 1e-3, (a["loss"], b["loss"])
+            assert a["sampler_active"] == b["sampler_active"]
+        active = [int(h["sampler_active"]) for h in mg]
+        assert any(active), "the gate never opened"
+        # K6 runs once for each plan the open gate draws (sharded only)
+        assert launched == (sum(active) if impl == "sharded" else 0), \
+            (launched, active)
+        log(f"[history lm-tiny] {impl}: gpu losses "
+            f"{[round(h['loss'], 5) for h in mg]} = cpu "
+            f"{[round(h['loss'], 5) for h in mc]} (to 1e-3); plans equal; "
+            f"gate {active}; K6 launches {launched}")
+
+
+HISTORY_CUTS = (
+    "cuts from prod: seq_len 4096 -> 1024; global_batch 256 -> "
+    f"{BATCH}; steps 1000 -> {STEPS}; sampler fused presample -> history "
+    "with sharded selection (the slice's point); store warm-up earned over "
+    f"an epoch -> a seeded fill of {WARM_FRAC:.0%} of the 2^24 ids at loop "
+    "start; telemetry on -> off; checkpointing on -> none; data plane "
+    "pipelined -> synchronous. Width, depth (28 layers) and vocab are not "
+    "cut.")
+
+
+def run_history_slice():
+    """Phase 11: the history slice at llama3.2-3b full width."""
+    import repro_torch
+    from repro_torch.api import Hook
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels.ce_score import ce_score as k4
+    from repro_torch.kernels.topk_keys import topk_keys as k6
+    from repro_torch.configs import get_config
+    overrides = {"sampler.scheme": "history", "imp.selection_impl": "sharded",
+                 "shape.global_batch": BATCH, "shape.seq_len": 1024,
+                 "steps": STEPS, "obs.enabled": False}
+    log(f"[history] llama3.2-3b, preset prod, overrides {overrides}, source "
+        f"SyntheticLM(vocab, 1024, n_examples=2**24, seed=0)")
+    log(f"[history] {HISTORY_CUTS}")
+
+    class StepLog(Hook):
+        def __init__(self):
+            self.rows = []
+
+        def on_loop_start(self, loop, start, steps):
+            t0 = time.perf_counter()
+            warm_fill(loop.exp.sampler.store)
+            log(f"[history] store warmed: coverage "
+                f"{loop.exp.sampler.store.coverage():.4f} in "
+                f"{time.perf_counter() - t0:.1f} s")
+
+        def on_step_start(self, loop, step, b, meta):
+            self.plan = dict(loop.exp.sampler.last_plan)
+            self.w = meta.weights.copy()
+            self.is_flag = float(meta.is_flag)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            self.t0 = time.perf_counter()
+
+        def on_step_end(self, loop, step, m):
+            torch.cuda.synchronize()
+            row = dict(step=step, loss=m["loss"], store_tau=m["store_tau"],
+                       sampler_active=m["sampler_active"],
+                       is_flag=self.is_flag, w_min=float(self.w.min()),
+                       w_max=float(self.w.max()),
+                       plan_ms={k: round(v, 4) for k, v in self.plan.items()},
+                       step_s=time.perf_counter() - self.t0,
+                       peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+            self.rows.append(row)
+            log("[history] " + json.dumps(row))
+
+    hook = StepLog()
+    source = SyntheticLM(get_config("llama3.2-3b").vocab_size, 1024,
+                         n_examples=N_STORE, seed=0)
+    k4.launches = k6.launches = 0
+    t0 = time.perf_counter()
+    _, history = repro_torch.train("llama3.2-3b", preset="prod",
+                                   overrides=overrides, source=source,
+                                   hooks=[hook])
+    torch.cuda.synchronize()
+    launches = k6.launches
+    total = time.perf_counter() - t0
+    log(f"[history] {STEPS} steps in {total:.1f} s (model build and store "
+        f"warm-up included); K6 launches {launches} ({launches / STEPS:g} "
+        f"per step), K4 {k4.launches} (not on this path)")
+    assert len(history) == STEPS
+    assert all(math.isfinite(h["loss"]) for h in history), history
+    assert launches == STEPS, "K6 was not launched once per step"
+    for r in hook.rows:
+        assert r["sampler_active"] == 1.0 and r["is_flag"] > 1.0, r
+        assert not (r["w_min"] == r["w_max"] == 1.0), r
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, hook.rows
+
+
+def time_k6(store):
+    """Phase 12: K6 at n = 2^24 on the warm store, the bottom-k beside it,
+    and the host-to-card transfer each plan pays."""
+    from repro_torch.kernels.topk_keys.ops import _bottom_k, race_keys
+    from repro_torch.kernels.topk_keys.ref import race_keys_ref
+    from repro_torch.sampler import selection
+    dist = selection.GlobalDist(selection.shard_stats(store.scores,
+                                                      store.seen, 1.0),
+                                store.n, 0.1, 1.0)
+    seen_f = store.seen.astype(np.float32)
+    h2d_ms = _time(lambda: (torch.from_numpy(store.scores).cuda(),
+                            torch.from_numpy(seen_f).cuda()), 5)
+    args = (torch.from_numpy(store.scores).cuda(),
+            torch.from_numpy(seen_f).cuda(),
+            selection.hash_context(0, 9173, 0), dist.fill_pow, dist.total)
+    ms = _time(lambda: race_keys(*args), 50)
+    plain_ms = _time(lambda: race_keys_ref(*args), 5)
+    keys = race_keys(*args)
+    topk_ms = _time(lambda: _bottom_k(keys, BATCH + 1), 20)
+    # the least the card could take: every seen flag read and every key
+    # written once, a score read only where the slot is seen (an unseen
+    # slot takes the fill); ~32 ops a slot (two fmix32 rounds, the
+    # uniform, three transcendentals, the mixture) outside the tensor cores
+    n_seen = int(np.count_nonzero(store.seen))
+    n_bytes = store.n * (4 + 4) + n_seen * 4
+    n_ops = 32 * store.n
+    bound_s = max(n_bytes / HBM_BYTES_PER_S, n_ops / F32_FLOPS_PER_S)
+    by = "bytes" if n_bytes / HBM_BYTES_PER_S >= n_ops / F32_FLOPS_PER_S \
+        else "operations"
+    log(f"[timing] K6 n={store.n}: {ms:.4f} ms/launch, plain "
+        f"{plain_ms:.4f} ms, bound {bound_s * 1e3:.4f} ms ({by}: "
+        f"{n_bytes / 1e6:.1f} MB at "
+        f"{HBM_BYTES_PER_S / 1e12} TB/s), {n_bytes / (ms * 1e-3) / 1e12:.3f} "
+        f"TB/s achieved; bottom-{BATCH + 1} (torch.topk over int64 "
+        f"composites) {topk_ms:.4f} ms; host-to-card transfer of scores and "
+        f"seen ({8 * store.n / 1e6:.1f} MB, pageable) {h2d_ms:.4f} ms")
+    del args, keys
+    torch.cuda.empty_cache()
+    return ms, plain_ms, bound_s * 1e3, by, topk_ms, h2d_ms
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py needs a CUDA GPU; torch finds none")
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels.ce_score import ce_score as k4
+    from repro_torch.kernels.topk_keys import topk_keys as k6
     kernels = [dict(name="ce_score_block", route="cuda",
                     source="src/repro_torch/kernels/ce_score/csrc/"
                            "ce_score_block.cu",
                     replaces="src/repro/kernels/ce_score/ce_score.py:144",
-                    sources=k4.SOURCES, held_by="phase 3 (K4) and 4 (prune)")]
+                    sources=k4.SOURCES, held_by="phase 3 (K4) and 4 (prune)"),
+               dict(name="race_keys", route="cuda",
+                    source="src/repro_torch/kernels/topk_keys/csrc/"
+                           "race_keys.cu",
+                    replaces="src/repro/kernels/topk_keys/topk_keys.py:71",
+                    sources=k6.SOURCES,
+                    held_by="phase 8 (K6) and 9 (sharded)")]
 
     smi = card()
     build_all(kernels)
@@ -353,19 +703,33 @@ def main():
     out.mkdir(exist_ok=True)
     launches, rows, breakdown = run_slice(out)
     ms, plain_ms, bound_ms, by = time_k4(gen)
+    store = _warm_store()
+    k6_abs, k6_rel = check_k6(store)
+    vs_loop = check_sharded(store)
+    check_history_lm_tiny()
+    k6_launches, hrows = run_history_slice()
+    k6_t = time_k6(store)
 
-    line = {"kernels": [{
-        "name": "ce_score_block", "route": "cuda",
-        "source": kernels[0]["source"], "replaces": kernels[0]["replaces"],
-        "launches": launches, "max_abs_err": err, "ms": ms,
-        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
-        "library_ms": None, "held_by": kernels[0]["held_by"]}]}
+    line = {"kernels": [
+        {"name": "ce_score_block", "route": "cuda",
+         "source": kernels[0]["source"], "replaces": kernels[0]["replaces"],
+         "launches": launches, "max_abs_err": err, "ms": ms,
+         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
+         "library_ms": None, "held_by": kernels[0]["held_by"]},
+        {"name": "race_keys", "route": "cuda",
+         "source": kernels[1]["source"], "replaces": kernels[1]["replaces"],
+         "launches": k6_launches, "max_abs_err": k6_abs,
+         "max_rel_err": k6_rel, "ms": k6_t[0], "plain_ms": k6_t[1],
+         "bound_ms": k6_t[2], "bound_by": k6_t[3], "library_ms": None,
+         "topk_ms": k6_t[4], "h2d_ms": k6_t[5],
+         "held_by": kernels[1]["held_by"]}]}
     ok = {"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}}
     (out / "chip_smoke.json").write_text(json.dumps(
-        {"card": smi, "steps": rows, "profile": breakdown, **line, **ok},
-        indent=1))
+        {"card": smi, "steps": rows, "profile": breakdown,
+         "history_steps": hrows, "sharded_vs_f64_loop": vs_loop, **line,
+         **ok}, indent=1))
     print(smi)
     print(json.dumps(line))
     print(json.dumps(ok), flush=True)

@@ -78,14 +78,17 @@ class Experiment:
         self.lm = LM(run_cfg.model, device=self.device, generator=gen)
         self.opt = get_optimizer(run_cfg.optim)
         self.source = _make_source(run_cfg, source)
-        self.sampler = make_sampler(run_cfg, self.source)
+        self.sampler = make_sampler(run_cfg, self.source,
+                                    device=self.device)
         self.engine = ScoreEngine(self.lm, run_cfg)
         self.sampler.bind_engine(self.engine)
         self.default_hooks = list(hooks)
-        # the host-chosen-batch step: the presample samplers select on
-        # the host and hand it b rows + the τ flag
-        self.step_fn = build_step(self.lm, run_cfg, self.opt,
-                                  StepSpec("host"))
+        # the score-memory and host-presample schemes hand the step b
+        # host-chosen rows + the τ flag; the on-device presample step kind
+        # (not ported) would score and resample inside the step
+        spec = StepSpec("host" if self.sampler.uses_score_step
+                        else "presample")
+        self.step_fn = build_step(self.lm, run_cfg, self.opt, spec)
 
     @classmethod
     def from_flags(cls, argv=None, **kw):

@@ -10,8 +10,11 @@ is scored against the params batch k's update starts from. The reference
 dispatches step k and then launches that scoring beside it; PyTorch runs
 eagerly and the optimizer updates the params in place, so this loop
 scores batch k+1 first and then runs step k (same params, same plans,
-no second copy of the weights). Straggler retries, checkpoints and
-membership changes are not ported yet.
+no second copy of the weights). Score feedback is drained one step late,
+as in the reference, so a store-backed scheme (``history``,
+``selective``) plans step i+1 from a store that holds step i−1's
+feedback. Straggler retries, checkpoints and membership changes are not
+ported yet.
 """
 from __future__ import annotations
 

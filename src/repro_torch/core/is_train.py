@@ -1,7 +1,7 @@
 """Importance-sampled training step (``repro.core.is_train``).
 
 This slice ports the ``host`` step kind: exactly b samples the HOST
-already chose (the fused and host presample samplers), optional
+already chose (host and fused presample, score memory, uniform), optional
 ``batch["weights"]``, and an ``is_flag`` scalar carrying the live
 host-side τ. The weighted update is plain autograd through the model; the
 τ controller (``_controller``), the lr τ-boost (``_tau_boost``) and the
@@ -103,7 +103,7 @@ def build_step(lm: LM, run_cfg, optimizer, spec: StepSpec):
     """host: step(state, batch, is_flag) -> (state, metrics)."""
     if spec.kind != "host":
         raise NotImplementedError(f"StepSpec({spec.kind!r}) is not ported "
-                                  f"yet; the fused presample path uses "
+                                  f"yet; the host-chosen-batch schemes use "
                                   f"StepSpec('host')")
     icfg = run_cfg.imp
 

@@ -1,5 +1,5 @@
 """Deterministic, resumable data pipeline (``repro.data.pipeline``, the
-parts the presample slice runs).
+parts the ported slices run).
 
 * ``PipelineState`` — the (epoch, cursor) iterator state; under the
   selection plane it is also the PLAN CURSOR.
@@ -7,11 +7,13 @@ parts the presample slice runs).
   seeded on-the-fly token streams with structured difficulty. Sources are
   numpy, so their batches are bitwise the reference's.
 * ``DataPlane`` — a depth-1 data plane that drives the sampler's two-phase
-  ``begin``/``finish`` synchronously on the calling thread. For a sampler
-  that carves its selection out of a pre-gathered candidate pool
-  (``begin_finalize``, the fused presample) it plans and gathers the pool,
-  moves it to the device, and hands it to the sampler. The threaded
-  depth-N plane waits for a later slice.
+  ``begin``/``finish`` synchronously on the calling thread. Schemes whose
+  plans read the score memory (``history``, ``selective``) and the other
+  schemes without ``begin_finalize`` pass straight through to the
+  sampler. For a sampler that carves its selection out of a pre-gathered
+  candidate pool (``begin_finalize``, the fused presample) it plans and
+  gathers the pool, moves it to the device, and hands it to the sampler.
+  The threaded depth-N plane waits for a later slice.
 """
 from __future__ import annotations
 

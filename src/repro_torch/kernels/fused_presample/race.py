@@ -1,10 +1,11 @@
-"""The presample race's counter hash on torch tensors.
+"""The race's counter hash on torch tensors.
 
-Each pool row i of a plan gets a uniform u ∈ (0,1) from a uint32 hash of
-(i, ctx) — the composition of ``repro.sampler.selection.hash_uniform``
-for pool positions, bit for bit. torch has no full uint32 arithmetic, so
-the hash runs in int64 with every product reduced mod 2³² (split into
-16-bit halves so no int64 product overflows).
+Each id i of a plan (a pool row, or a store slot's global id) gets a
+uniform u ∈ (0,1) from a uint32 hash of (i, ctx) — the composition of
+``repro.sampler.selection.hash_uniform`` for ids below 2³², bit for bit.
+torch has no full uint32 arithmetic, so the hash runs in int64 with every
+product reduced mod 2³² (split into 16-bit halves so no int64 product
+overflows).
 """
 from __future__ import annotations
 
@@ -27,17 +28,25 @@ def fmix32(x):
     return x ^ (x >> 16)
 
 
-def pool_hash(n: int, ctx: int, device=None):
-    """The (n,) uint32 race hashes of pool rows 0..n-1 under plan context
-    ``ctx``, as int64."""
-    idx = torch.arange(n, dtype=torch.int64, device=device)
-    h = fmix32(_mul32(idx, 0x9E3779B9) ^ (int(ctx) & _M32))
+def race_hash(ids, ctx: int):
+    """The uint32 race hashes of uint32 ids (an int64 tensor) under plan
+    context ``ctx``, as int64."""
+    h = fmix32(_mul32(ids & _M32, 0x9E3779B9) ^ (int(ctx) & _M32))
     return fmix32((h + 0x6A09E667) & _M32)
 
 
-def pool_exponentials(n: int, ctx: int, device=None):
-    """The race key's numerator, known before scoring: Eᵢ = −log(uᵢ), f32,
-    with u = (hash >> 8)·2⁻²⁴ + 2⁻²⁵ as the device pass computes it."""
-    u = (pool_hash(n, ctx, device) >> 8).to(torch.float32) * (2.0 ** -24) \
+def race_uniforms(ids, ctx: int):
+    """u = (hash >> 8)·2⁻²⁴ + 2⁻²⁵ ∈ (0,1), f32, as the device computes it."""
+    return (race_hash(ids, ctx) >> 8).to(torch.float32) * (2.0 ** -24) \
         + 2.0 ** -25
-    return -torch.log(u)
+
+
+def pool_hash(n: int, ctx: int, device=None):
+    """The (n,) uint32 race hashes of pool rows 0..n-1, as int64."""
+    return race_hash(torch.arange(n, dtype=torch.int64, device=device), ctx)
+
+
+def pool_exponentials(n: int, ctx: int, device=None):
+    """The race key's numerator, known before scoring: Eᵢ = −log(uᵢ), f32."""
+    return -torch.log(race_uniforms(
+        torch.arange(n, dtype=torch.int64, device=device), ctx))

@@ -15,6 +15,11 @@ attribute checks. Instrument names are the ones documented in
 ``repro/obs/schema.py`` (the lint gate's RL005 holds both packages to
 that one schema). Sinks, the telemetry hook and the IS-health layer are
 not ported yet: a run's counters are read with ``snapshot()``.
+
+``device_mark`` / ``mark_intervals_ms`` time phases of device work with
+CUDA events, which cost no synchronisation: a caller records marks on
+the current stream and reads the intervals once its results are on the
+host anyway.
 """
 from __future__ import annotations
 
@@ -57,6 +62,23 @@ def span(name: str) -> Span:
     return _registry.span(name)
 
 
+def device_mark(marks) -> None:
+    """Append a CUDA event recorded on the current stream to ``marks``
+    (a list); ``None`` records nothing."""
+    if marks is None:
+        return
+    import torch
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record()
+    marks.append(ev)
+
+
+def mark_intervals_ms(marks) -> list:
+    """Milliseconds between consecutive marks; waits for the last one."""
+    marks[-1].synchronize()
+    return [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+
+
 def snapshot() -> dict:
     return _registry.snapshot()
 
@@ -67,4 +89,5 @@ def reset() -> None:
 
 __all__ = ["Registry", "Counter", "Gauge", "Histogram", "Span",
            "get_registry", "enabled", "enable", "configure",
-           "counter", "gauge", "histogram", "span", "snapshot", "reset"]
+           "counter", "gauge", "histogram", "span", "device_mark",
+           "mark_intervals_ms", "snapshot", "reset"]

@@ -92,6 +92,17 @@ class ScoreEngine:
             # race context is pinned to 0
             return self._fn_pruned(batch, rows)(params, batch, 0)
 
+    def score_host(self, params, batch):
+        """Blocking convenience: numpy (loss_ps, scores)."""
+        loss_ps, scores = self.score(params, batch)
+        return loss_ps.cpu().numpy(), scores.cpu().numpy()
+
+    def score_plan(self, params, plan, assembler):
+        """Score this host's rows of a ``BatchPlan`` (the store-refresh
+        entry of ``Sampler.refresh_plan``): the assembler materialises the
+        plan's rows and ``score`` runs them."""
+        return self.score(params, assembler.assemble(plan))
+
     def _to_device(self, batch):
         """Every value as a tensor on the engine's device, charging what
         crosses from the host to ``engine.h2d_bytes``."""
