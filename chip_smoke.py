@@ -46,7 +46,46 @@ Phases, in order; each raises on failure, so the process exits non-zero:
               store τ, gate, weights, the plan's split (stats reduction,
               host-to-card transfer, K6, bottom-k), wall time, peak memory;
 12. K6 timing — K6 per launch (CUDA events) at n = 2²⁴ beside its plain
-              version, the bottom-k, the transfer and its bound.
+              version, the bottom-k, the transfer and its bound;
+13. K5       — ``flash_attention`` against its plain version on the card:
+              cell C's prefill (8 × 4096 over a 4160-slot cache, 24/8
+              heads of 128, bf16; the plain version run two batch rows at a
+              time) and decode (one query at 4096…4159 over the cache's
+              prefix), a ragged shape, a sliding window, f32, and the
+              prefill and a decode with q scaled ×6 (a peaked softmax,
+              outputs of order 1); the oracle runs in f32 on the same
+              inputs; each case within ``K5_TOL`` of every output and
+              within ``K5_ROW_REL`` of each query row's largest |output|;
+14. K1       — ``ce_score`` against its plain version on the card: cell
+              D's (8·1024, 128256) logits in bf16 and f32, a ragged T over
+              a strided view, labels at 0 and V − 1, extreme logits;
+15. serve lm-tiny — ``serve_step`` on the card (K5) against the CPU (plain)
+              from the same params, prefill and teacher-forced decode
+              logits to 1e-3, and ``repro_torch.serve``'s greedy tokens
+              equal on both;
+16. cell C   — ``repro_torch.serve("llama3.2-3b", batch=8, prompt_len=4096,
+              gen=64)`` at full width and depth (cuts printed); counts
+              zeroed just before and read just after (K5: 28 a step, 1792;
+              K1 0); prefill and decode times, peak memory; then prefill
+              and 4 decode steps again on the same tokens through K5 and
+              through the plain route: worst logit error against the
+              logits' scale, and greedy tokens equal in every row; the prefill and 4 decode steps under
+              ``torch.profiler`` (device busy time, idle share, device ops
+              and host-to-card copies a step; tables to
+              ``chiprun_out/profile_serve_*.txt``);
+17. cell D   — ``repro_torch.score("llama3.2-3b", preset="prod", ...)``
+              under ``imp.score_impl="pallas"`` (K1 once, K5 28 times),
+              held against the same call under ``"fused"``;
+18. K5/K1 timing — K5 per launch at cell C's prefill and decode shapes,
+              K1 at cell D's, each beside its plain version, its bound and
+              (K5) ``scaled_dot_product_attention`` on the same inputs as a
+              yardstick that the port never calls. CUDA events time the
+              prefill and K1; the decode shape is timed by its device
+              activity under the profiler, since a launch there is shorter
+              than its dispatch.
+
+Phase 6 also counts K5, which now runs cell A's forward-only pool scoring
+(28 launches a step).
 
 The second-to-last lines are the card line and the ``{"kernels": ...}``
 line; the last line is ``{"ok": true, "device": {...}}``. Also written to
@@ -70,6 +109,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet (700 W)
 F32_FLOPS_PER_S = 67e12         # H100 SXM, float32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12       # H100 SXM, dense bf16 on the tensor cores
 TOL = dict(rtol=1e-4, atol=1e-3)  # kernel vs plain, f32 row sums over ≤128
                                   # tokens: __expf and the summation order
 BATCH = 4      # global batch (prod: 256); the pool is 3 × BATCH = 12 rows
@@ -80,6 +120,21 @@ WARM_FRAC = 0.9    # share of the store warmed at loop start (the rest unseen)
 K6_RTOL = 2e-6     # kernel vs plain keys: both f32, IEEE logf/expf on the
                    # card; a last-ulp difference in log(s) grows by |log s|/T
                    # through the exp
+K5_TOL = {torch.float32: 2e-4,    # rtol = atol, tests/test_kernels.py's
+          torch.bfloat16: 3e-2}   # bounds (bf16: P rounded for the PV mma)
+# K5 per query row: worst |kernel - f32 oracle| over the row's largest
+# |output|. The absolute bounds above are about one typical output late in
+# a long causal row (rms about sqrt(e / n)), so they alone would pass a
+# kernel wrong in late kv tiles or in the decode's split partials. bf16:
+# the output's rounding is at most 2^-8 of an element, plus P's rounding;
+# f32: summation order and __expf. Each is 2.4 (bf16) and 5.7 (f32) times
+# the worst over this phase's cases on an H100 80GB HBM3 at 700 W.
+K5_ROW_REL = {torch.float32: 1e-5, torch.bfloat16: 1.5e-2}
+Q_PEAK = 6.0       # q scale of the peaked cases: a few keys carry a row
+K1_TOL = dict(rtol=1e-4, atol=1e-4)  # per-token f32 stats: __expf and the
+                                     # summation order
+SERVE = dict(batch=8, prompt_len=4096, gen=64)  # cell C; cap 4160
+N_LAYERS = 28      # llama3.2-3b
 
 
 def log(*a):
@@ -224,6 +279,8 @@ def check_lm_tiny():
 
 KERNEL_GROUPS = (  # first match wins; names as the profiler reports them
     ("K4 ce_score_block", ("ce_token_kernel", "row_sum_kernel")),
+    ("K5 flash_attention", ("flash_bf16_kernel", "flash_f32_kernel",
+                            "combine_kernel")),
     ("matmul", ("gemm", "nvjet", "xmma", "cutlass", "sgemm")),
     ("memcpy/memset", ("Memcpy", "Memset")),
     ("elementwise/reduce", ("",)),
@@ -235,6 +292,7 @@ def run_slice(out):
     import repro_torch
     from repro_torch.api import Hook
     from repro_torch.kernels.ce_score import ce_score as k4
+    from repro_torch.kernels.flash_attn import flash_attn as k5
     from repro_torch.kernels.topk_keys import topk_keys as k6
     from torch.profiler import ProfilerActivity, profile
     overrides = {"shape.global_batch": BATCH, "shape.seq_len": 1024,
@@ -275,23 +333,45 @@ def run_slice(out):
             log("[slice] " + json.dumps(row))
 
     hook = StepLog()
-    k4.launches = k6.launches = 0
+    k4.launches = k5.launches = k6.launches = 0
     t0 = time.perf_counter()
     _, history = repro_torch.train("llama3.2-3b", preset="prod",
                                    overrides=overrides, hooks=[hook])
     torch.cuda.synchronize()
-    launches = k4.launches
+    launches, k5_launches = k4.launches, k5.launches
     total = time.perf_counter() - t0
     assert len(history) == STEPS
     assert all(math.isfinite(h["loss"]) for h in history), history
     log(f"[slice] {STEPS} steps in {total:.1f} s (model build included); "
-        f"K4 launches {launches} ({launches / STEPS:g} per step), K6 "
-        f"{k6.launches} (not on this path)")
+        f"K4 launches {launches} ({launches / STEPS:g} per step), K5 "
+        f"{k5_launches} ({k5_launches / STEPS:g} per step, the pool's "
+        f"scoring forward), K6 {k6.launches} (not on this path)")
     assert launches == 8 * STEPS, "K4 was not launched 8 times per step"
+    assert k5_launches == N_LAYERS * STEPS, \
+        "K5 was not launched once per layer of each pool's scoring forward"
     breakdown = step_breakdown(hook.prof, hook.rows, out)
     gc.collect()
     torch.cuda.empty_cache()
-    return launches, hook.rows, breakdown
+    return launches, k5_launches, hook.rows, breakdown
+
+
+def _device_time(prof):
+    """Seconds of device activity by kernel name in a profiler window."""
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us = e.time_range.end - e.time_range.start
+            by_name[e.name] = by_name.get(e.name, 0.0) + us * 1e-6
+    return by_name
+
+
+def _groups(by_name):
+    groups = {g: 0.0 for g, _ in KERNEL_GROUPS}
+    for name, s in by_name.items():
+        g = next(g for g, keys in KERNEL_GROUPS
+                 if any(k in name for k in keys))
+        groups[g] += s
+    return groups
 
 
 def step_breakdown(prof, rows, out):
@@ -299,21 +379,13 @@ def step_breakdown(prof, rows, out):
     Busy time is the sum of device activity on the one stream the port
     uses; the idle share is taken against step 1's unprofiled wall time,
     a step of the same work without the profiler's overhead."""
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            us = e.time_range.end - e.time_range.start
-            by_name[e.name] = by_name.get(e.name, 0.0) + us * 1e-6
+    by_name = _device_time(prof)
     busy = sum(by_name.values())
     if busy == 0.0:
         log("[profile] the profiler saw no device activity: breakdown not "
             "measured")
         return None
-    groups = {g: 0.0 for g, _ in KERNEL_GROUPS}
-    for name, s in by_name.items():
-        g = next(g for g, keys in KERNEL_GROUPS
-                 if any(k in name for k in keys))
-        groups[g] += s
+    groups = _groups(by_name)
     wall, steady = rows[PROFILED]["step_s"], rows[1]["step_s"]
     log(f"[profile] step {PROFILED}: wall {wall:.4f} s (profiled), device "
         f"busy {busy:.4f} s; idle share against step 1's unprofiled "
@@ -569,6 +641,7 @@ def run_history_slice():
     from repro_torch.api import Hook
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.kernels.ce_score import ce_score as k4
+    from repro_torch.kernels.flash_attn import flash_attn as k5
     from repro_torch.kernels.topk_keys import topk_keys as k6
     from repro_torch.configs import get_config
     overrides = {"sampler.scheme": "history", "imp.selection_impl": "sharded",
@@ -612,7 +685,7 @@ def run_history_slice():
     hook = StepLog()
     source = SyntheticLM(get_config("llama3.2-3b").vocab_size, 1024,
                          n_examples=N_STORE, seed=0)
-    k4.launches = k6.launches = 0
+    k4.launches = k5.launches = k6.launches = 0
     t0 = time.perf_counter()
     _, history = repro_torch.train("llama3.2-3b", preset="prod",
                                    overrides=overrides, source=source,
@@ -622,7 +695,8 @@ def run_history_slice():
     total = time.perf_counter() - t0
     log(f"[history] {STEPS} steps in {total:.1f} s (model build and store "
         f"warm-up included); K6 launches {launches} ({launches / STEPS:g} "
-        f"per step), K4 {k4.launches} (not on this path)")
+        f"per step), K4 {k4.launches} (not on this path), K5 "
+        f"{k5.launches} (no forward-only pass on this path)")
     assert len(history) == STEPS
     assert all(math.isfinite(h["loss"]) for h in history), history
     assert launches == STEPS, "K6 was not launched once per step"
@@ -674,24 +748,498 @@ def time_k6(store):
     torch.cuda.empty_cache()
     return ms, plain_ms, bound_s * 1e3, by, topk_ms, h2d_ms
 
+# ---------------------------------------------------------------------------
+# slice 3: serving and scoring, K5 and K1
+# ---------------------------------------------------------------------------
+def _k5_inputs(b, sq, skv, hq, hkv, hd, dtype, gen, slots=0, q_scale=1.0):
+    """q (b, sq, hq, hd); k, v (b, skv, hkv, hd), as prefix views of a
+    ``slots``-slot cache when ``slots`` > skv (how serving passes them)."""
+    n = max(skv, slots)
+    q = torch.randn((b, sq, hq, hd), generator=gen, device="cuda") \
+        .mul_(q_scale).to(dtype)
+    k = torch.randn((b, n, hkv, hd), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((b, n, hkv, hd), generator=gen, device="cuda").to(dtype)
+    return q, k[:, :skv], v[:, :skv]
+
+
+def _k5_plain(q, k, v, rows=2, **kw):
+    """K5's plain version, ``rows`` batch rows at a time: the oracle holds
+    the whole (B·hq, sq, skv) score matrix in f32, 13 GB for all 8 rows of
+    cell C's prefill."""
+    from repro_torch.kernels.flash_attn.ops import flash_attention
+    return torch.cat([flash_attention(q[i:i + rows], k[i:i + rows],
+                                      v[i:i + rows], interpret=True, **kw)
+                      for i in range(0, q.shape[0], rows)])
+
+
+def _row_rel_err(got, want):
+    """max over query rows of max|got − want| / max|want| (over hd)."""
+    err = (got.float() - want).abs().amax(-1)
+    return float((err / want.abs().amax(-1).clamp_min(1e-30)).max())
+
+
+def check_k5(gen):
+    """Phase 13. Returns the worst absolute and per-row relative errors
+    over the cases, and each case's."""
+    from repro_torch.kernels.flash_attn.ops import flash_attention
+    P, cap = SERVE["prompt_len"], SERVE["prompt_len"] + SERVE["gen"]
+    cases = [
+        # name, (b, sq, skv, hq, hkv, hd), dtype, window, q_offset, slots
+        (f"cell C prefill (8,{P}) over the {cap}-slot cache, bf16",
+         (8, P, cap, 24, 8, 128), torch.bfloat16, 0, 0, 0),
+        (f"cell C prefill (8,{P}), q x{Q_PEAK:g} (peaked), bf16",
+         (8, P, cap, 24, 8, 128), torch.bfloat16, 0, 0, 0, Q_PEAK),
+        ("ragged (3,333) 24/8x128 bf16", (3, 333, 333, 24, 8, 128),
+         torch.bfloat16, 0, 0, 0),
+        ("window 256 (2,600) 24/8x128 bf16", (2, 600, 600, 24, 8, 128),
+         torch.bfloat16, 256, 0, 0),
+        ("f32 (2,300) 24/8x128", (2, 300, 300, 24, 8, 128), torch.float32,
+         0, 0, 0),
+        ("f32 lm-tiny decode (2,1) 4/2x16 at 40", (2, 1, 41, 4, 2, 16),
+         torch.float32, 0, 40, 64),
+    ]
+    for off in (P, P + 31, cap - 1):
+        cases.append((f"cell C decode (8,1) at {off} over the cache, bf16",
+                      (8, 1, off + 1, 24, 8, 128), torch.bfloat16, 0, off,
+                      cap))
+    cases.append((f"cell C decode (8,1) at {P + 31}, q x{Q_PEAK:g} "
+                  "(peaked), bf16", (8, 1, P + 32, 24, 8, 128),
+                  torch.bfloat16, 0, P + 31, cap, Q_PEAK))
+    worst, worst_rel, per_case = 0.0, 0.0, {}
+    for name, shape, dtype, window, off, slots, *q_scale in cases:
+        q, k, v = _k5_inputs(*shape, dtype, gen, slots, *q_scale)
+        kw = dict(window=window, q_offset=off)
+        got = flash_attention(q, k, v, **kw)
+        want = _k5_plain(q.float(), k.float(), v.float(), **kw)
+        torch.cuda.synchronize()
+        tol, rel_tol = K5_TOL[dtype], K5_ROW_REL[dtype]
+        err = float((got.float() - want).abs().max())
+        rel = _row_rel_err(got, want)
+        log(f"[k5] {name}: max |kernel - plain| = {err:.3e} (rtol = atol "
+            f"{tol}); worst row error / row's max |output| = {rel:.3e} "
+            f"(<= {rel_tol})")
+        torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol)
+        assert rel <= rel_tol, (name, rel, rel_tol)
+        worst, worst_rel = max(worst, err), max(worst_rel, rel)
+        per_case[name] = dict(max_abs_err=err, max_row_rel_err=rel)
+        del q, k, v, got, want
+        torch.cuda.empty_cache()
+    log("[k5] the plain version ran in f32 on the same inputs, two batch "
+        "rows at a time (its f32 score matrix for all 8 rows of the "
+        "prefill is 13 GB)")
+    return worst, worst_rel, per_case
+
+
+def check_k1(gen):
+    """Phase 14. Returns the worst absolute error over the cases."""
+    from repro_torch.kernels.ce_score.ops import ce_score
+    from repro_torch.kernels.ce_score.ref import ce_score_ref
+    T, V = 8 * 1024, 128256
+    cases = [("cell D (8192, 128256) bf16", T, V, torch.bfloat16, 0),
+             ("cell D (8192, 128256) f32", T, V, torch.float32, 0),
+             ("ragged (1001, 50257) bf16, strided rows", 1001, 50257,
+              torch.bfloat16, 5),
+             ("ragged (77, 32003) f32, strided rows", 77, 32003,
+              torch.float32, 3)]
+    worst = 0.0
+    for name, T, V, dtype, pad in cases:
+        z = torch.randn((T, V + pad), generator=gen, device="cuda") \
+            .mul_(3.0)
+        z = z.to(dtype)[:, pad // 2:pad // 2 + V]          # rows strided
+        extreme = torch.tensor([1e4, -1e4, 0.0, 5.0])
+        z[0, :4] = extreme
+        z[1, :4] = extreme
+        y = torch.randint(0, V, (T,), generator=gen, device="cuda",
+                          dtype=torch.int32)
+        y[0], y[1], y[2], y[3] = 0, 1, V - 1, 0
+        got = ce_score(z, y)
+        want = ce_score_ref(z, y)
+        torch.cuda.synchronize()
+        err = 0.0
+        for g, w in zip(got, want):
+            assert bool(torch.isfinite(g).all())
+            torch.testing.assert_close(g, w, **K1_TOL)
+            err = max(err, float((g - w).abs().max()))
+        # label = argmax: ce ~ 0, g2 ~ 0; label = argmin: g2 ~ 2
+        assert abs(float(got[0][0])) < 1e-3 and abs(float(got[1][0])) < 1e-3
+        assert abs(float(got[1][1]) - 2.0) < 1e-3
+        worst = max(worst, err)
+        log(f"[k1] {name}: max |kernel - plain| = {err:.3e} (rtol "
+            f"{K1_TOL['rtol']}, atol {K1_TOL['atol']}); extreme rows finite")
+        del z, y, got, want
+        torch.cuda.empty_cache()
+    return worst
+
+
+def _teacher_forced(lm, tokens, prompts, steps, q_offset):
+    """Prefill ``prompts`` into fresh caches, then ``steps`` decode steps
+    fed ``tokens[:, i]``; the last-position logits of each (f32). With
+    ``q_offset`` the steps take K5, else the plain attention paths."""
+    b, P = prompts.shape
+    caches = lm.caches(b, P + tokens.shape[1])
+    dev = prompts.device
+
+    def step(toks, start):
+        if q_offset:
+            return lm.serve_step(caches, {"tokens": toks}, q_offset=start)
+        pos = torch.arange(start, start + toks.shape[1], dtype=torch.int32,
+                           device=dev)[None].expand(b, -1)
+        return lm.serve_step(caches, {"tokens": toks, "positions": pos})
+    out = []
+    with torch.inference_mode():
+        out.append(step(prompts, 0)[0][:, -1].float())
+        for i in range(steps):
+            out.append(step(tokens[:, i:i + 1], P + i)[0][:, -1].float())
+    return out
+
+
+def check_serve_lm_tiny():
+    """Phase 15: lm-tiny served on the card (K5, f32) and on the CPU (the
+    plain attention paths) from the same params and prompts."""
+    import repro_torch
+    from repro_torch.checkpoint import interop
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attn import flash_attn as k5
+    from repro_torch.models.lm import LM
+    cfg = get_config("lm-tiny")
+    gpu = LM(cfg, "cuda")
+    cpu = interop.params_from_numpy(interop.params_to_numpy(gpu), cfg, "cpu")
+    prompts = np.random.default_rng(5).integers(0, cfg.vocab_size, (2, 24))
+    before = k5.launches
+    outs = [repro_torch.serve(cfg, params=lm.state_dict(), prompts=prompts,
+                              gen=8, device=dev)
+            for lm, dev in ((gpu, "cuda"), (cpu, "cpu"))]
+    launched = k5.launches - before
+    assert np.array_equal(outs[0]["tokens"], outs[1]["tokens"]), \
+        (outs[0]["tokens"], outs[1]["tokens"])
+    n_layers = cfg.segments[0].repeats
+    assert launched == n_layers * 8, launched
+    toks = torch.from_numpy(outs[0]["tokens"])
+    pg = _teacher_forced(gpu, toks.cuda(), torch.from_numpy(prompts).cuda(),
+                         7, True)
+    pc = _teacher_forced(cpu, toks, torch.from_numpy(prompts), 7, True)
+    err = max(float((a.cpu() - b).abs().max()) for a, b in zip(pg, pc))
+    assert err < 1e-3, err
+    log(f"[serve lm-tiny] card (K5, {launched} launches) and CPU (plain): "
+        f"greedy tokens equal {outs[0]['tokens'].tolist()}; prefill and "
+        f"decode logits within {err:.2e} (< 1e-3)")
+    return err
+
+
+SERVE_CUTS = (
+    "cuts from decode_32k (batch 128, prompt 32768): batch 128 -> "
+    f"{SERVE['batch']}, prompt 32768 -> {SERVE['prompt_len']}, generation "
+    f"{SERVE['gen']} tokens, cap {SERVE['prompt_len'] + SERVE['gen']}; "
+    "mesh (pod) -> one card. Width, depth (28 layers), vocab and the bf16 "
+    "weights and caches are not cut.")
+
+
+def profile_serve(lm, prompts, toks, row, out, steps=4):
+    """Where cell C's time goes: the K5-route prefill and ``steps``
+    teacher-forced decode steps, each window under ``torch.profiler``.
+    Device busy time against the unprofiled serve's prefill time and
+    decode step time gives each phase's idle share; the kernel count of a
+    decode step and its host-to-card copies show what the host does."""
+    from torch.profiler import ProfilerActivity, profile
+    b, P = prompts.shape
+    caches = lm.caches(b, P + toks.shape[1])
+    res = {}
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as pre:
+            lm.serve_step(caches, {"tokens": prompts}, q_offset=0)
+            torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as dec:
+            t0 = time.perf_counter()
+            for i in range(steps):
+                lm.serve_step(caches, {"tokens": toks[:, i:i + 1]},
+                              q_offset=P + i)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    for name, prof, n, ref_s in (("prefill", pre, 1, row["prefill_s"]),
+                                 ("decode", dec, steps,
+                                  row["decode_ms_per_step"] * 1e-3)):
+        by_name = _device_time(prof)
+        busy = sum(by_name.values()) / n
+        kernels = sum(1 for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA) / n
+        h2d = sum(1 for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and "HtoD" in e.name) / n
+        groups = {g: t / n for g, t in _groups(by_name).items()}
+        res[name] = dict(busy_ms=busy * 1e3, unprofiled_ms=ref_s * 1e3,
+                         idle_share=1 - busy / ref_s,
+                         device_ops=kernels, h2d_copies=h2d,
+                         groups_ms={g: t * 1e3 for g, t in groups.items()})
+        log(f"[profile C] {name} (per {'step' if n > 1 else 'pass'}): device "
+            f"busy {busy * 1e3:.3f} ms of an unprofiled {ref_s * 1e3:.3f} ms"
+            f" (idle share {1 - busy / ref_s:.3f}); {kernels:g} device ops, "
+            f"{h2d:g} host-to-card copies")
+        for g, t in groups.items():
+            log(f"[profile C]   {g}: {t * 1e3:.3f} ms")
+        for k, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
+            log(f"[profile C]   {t / n * 1e3:9.3f} ms  {k[:90]}")
+        (out / f"profile_serve_{name}.txt").write_text(
+            prof.key_averages().table(sort_by="self_cuda_time_total",
+                                      row_limit=50))
+    res["decode"]["profiled_wall_ms"] = wall / steps * 1e3
+    return res
+
+
+def run_cell_c(out):
+    """Phase 16: serving llama3.2-3b at full width and depth."""
+    import repro_torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ce_score import ce_score as k1k4
+    from repro_torch.kernels.flash_attn import flash_attn as k5
+    from repro_torch.models.lm import LM
+    log(f"[cell C] repro_torch.serve('llama3.2-3b', {SERVE})")
+    log(f"[cell C] {SERVE_CUTS}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    k5.launches = k1k4.ce_score_launches = 0
+    t0 = time.perf_counter()
+    served = repro_torch.serve("llama3.2-3b", **SERVE)
+    total = time.perf_counter() - t0
+    launches, k1 = k5.launches, k1k4.ce_score_launches
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    b, gen = SERVE["batch"], SERVE["gen"]
+    assert served["tokens"].shape == (b, gen)
+    assert launches == N_LAYERS * gen, launches
+    assert k1 == 0
+    row = dict(prefill_s=served["prefill_s"], decode_s=served["decode_s"],
+               decode_ms_per_step=served["decode_s"] / (gen - 1) * 1e3,
+               tok_per_s=served["tok_per_s"], peak_gib=peak, total_s=total,
+               k5_launches=launches, k1_launches=k1)
+    log("[cell C] " + json.dumps(row))
+    # the plain route on the same tokens: prefill + 4 decode steps
+    steps = 4
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm = LM(get_config("llama3.2-3b"), "cuda")     # serve's params (seed 0)
+    g = torch.Generator().manual_seed(1)           # serve's prompts (seed 1)
+    prompts = torch.randint(0, lm.cfg.vocab_size,
+                            (b, SERVE["prompt_len"]), generator=g).cuda()
+    toks = torch.from_numpy(served["tokens"]).cuda()
+    fast = _teacher_forced(lm, toks, prompts, steps, True)
+    plain = _teacher_forced(lm, toks, prompts, steps, False)
+    errs, scales, agree = [], [], []
+    for i, (f, p) in enumerate(zip(fast, plain)):
+        errs.append(float((f - p).abs().max()))
+        scales.append(float(p.abs().max()))
+        agree.append(float((f.argmax(-1) == p.argmax(-1)).float().mean()))
+        # the K5 route reproduces serve's own greedy tokens
+        assert torch.equal(f.argmax(-1), toks[:, i]), i
+    for e, s in zip(errs, scales):
+        assert math.isfinite(e) and e < 0.05 * s, (errs, scales)
+    # greedy decoding through either route picks the same tokens
+    assert all(a == 1.0 for a in agree), agree
+    cmp = dict(max_abs_err=max(errs), err_by_step=errs, logit_scale=scales,
+               greedy_agreement=agree)
+    log(f"[cell C] K5 route vs plain route, prefill + {steps} decode steps "
+        f"(teacher-forced on serve's tokens): " + json.dumps(cmp))
+    cmp["profile"] = profile_serve(lm, prompts, toks, row, out)
+    del lm, fast, plain, toks, prompts
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, row, cmp
+
+
+def run_cell_d():
+    """Phase 17: scoring llama3.2-3b under the K1 route against "fused"."""
+    import repro_torch
+    from repro_torch.kernels.ce_score import ce_score as k1k4
+    from repro_torch.kernels.flash_attn import flash_attn as k5
+    base = {"shape.seq_len": 1024, "shape.global_batch": 8,
+            "obs.enabled": False}
+    log(f"[cell D] repro_torch.score('llama3.2-3b', preset='prod', "
+        f"overrides={dict(base, **{'imp.score_impl': 'pallas'})}); cuts from "
+        f"prod: seq_len 4096 -> 1024, global_batch 256 -> 8 (the first "
+        f"batch of the synthetic source scored once); width, depth and vocab "
+        f"are not cut")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    k5.launches = k1k4.ce_score_launches = k1k4.launches = 0
+    t0 = time.perf_counter()
+    loss, sc = repro_torch.score("llama3.2-3b", preset="prod", overrides=dict(
+        base, **{"imp.score_impl": "pallas"}))
+    wall = time.perf_counter() - t0
+    k1, k5n = k1k4.ce_score_launches, k5.launches
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    assert (k1, k5n, k1k4.launches) == (1, N_LAYERS, 0), (k1, k5n)
+    loss_f, sc_f = repro_torch.score("llama3.2-3b", preset="prod",
+                                     overrides=dict(
+                                         base, **{"imp.score_impl": "fused"}))
+    assert loss.shape == sc.shape == (8,)
+    assert np.isfinite(loss).all() and np.isfinite(sc).all()
+    np.testing.assert_allclose(loss, loss_f, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(sc, sc_f, rtol=1e-4, atol=1e-4)
+    row = dict(k1_launches=k1, k5_launches=k5n, wall_s=wall, peak_gib=peak,
+               loss=loss.tolist(), score=sc.tolist(),
+               max_loss_diff_vs_fused=float(np.abs(loss - loss_f).max()),
+               max_score_diff_vs_fused=float(np.abs(sc - sc_f).max()))
+    log("[cell D] " + json.dumps(row) + " (against 'fused': rtol = atol "
+        "1e-4)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return k1, row
+
+
+def _device_ms(fn, n):
+    """Device time per call of ``fn``: the sum of its device activity over
+    ``n`` calls under ``torch.profiler``, divided by n. For calls shorter
+    than the host's dispatch of them, where CUDA events around a loop time
+    the host."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    busy = sum(_device_time(prof).values())
+    if busy == 0.0:
+        raise RuntimeError("the profiler saw no device activity")
+    return busy * 1e3 / n
+
+
+def _bound(n_bytes, n_ops, flops_per_s):
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / flops_per_s
+    return max(t_bytes, t_ops) * 1e3, \
+        "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _sdpa(q, k, v, causal):
+    """``scaled_dot_product_attention`` on the kernel's inputs, a yardstick
+    the port never calls. Returns the timed call with k and v already
+    expanded to q's heads (the expansion, outside the timing, lets it take
+    its fused backends; what it times is the attention alone)."""
+    g = q.shape[2] // k.shape[2]
+    qt = q.transpose(1, 2)
+    kt = k.repeat_interleave(g, dim=2).transpose(1, 2)
+    vt = v.repeat_interleave(g, dim=2).transpose(1, 2)
+    f = torch.nn.functional.scaled_dot_product_attention
+    return lambda: f(qt, kt, vt, is_causal=causal)
+
+
+def time_k5(gen):
+    """Phase 18a: K5 per launch at cell C's prefill and mean decode shape."""
+    from repro_torch.kernels.flash_attn.ops import flash_attention
+    P, cap = SERVE["prompt_len"], SERVE["prompt_len"] + SERVE["gen"]
+    b, hq, hkv, hd = 8, 24, 8, 128
+    res = {}
+    # prefill: causal over the prompt, the cache's tail masked
+    q, k, v = _k5_inputs(b, P, cap, hq, hkv, hd, torch.bfloat16, gen)
+    ms = _time(lambda: flash_attention(q, k, v), 10)
+    plain_ms = _time(lambda: _k5_plain(q, k, v), 2)
+    lib_ms = _time(_sdpa(q, k[:, :P], v[:, :P], True), 10)
+    pairs = P * (P + 1) // 2                       # unmasked (q, k) pairs
+    n_ops = 4 * b * hq * hd * pairs
+    n_bytes = 2 * (2 * b * P * hq * hd + 2 * b * P * hkv * hd)
+    bound_ms, by = _bound(n_bytes, n_ops, BF16_FLOPS_PER_S)
+    res["prefill"] = dict(shape=f"q (8,{P},24,128), kv (8,{cap},8,128) bf16",
+                          ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                          bound_ms=bound_ms, bound_by=by,
+                          tflops=n_ops / (ms * 1e-3) / 1e12,
+                          timed_by="CUDA events")
+    del q, k, v
+    torch.cuda.empty_cache()
+    # decode: one query at the cache's mean fill, over the cache prefix.
+    # A launch takes less device time than the host needs to issue it, so
+    # CUDA events around a loop of them time the host: the kernel, its
+    # plain version and the library call are timed by their device
+    # activity under the profiler (the loop's event time kept beside)
+    off = P + SERVE["gen"] // 2 - 1
+    q, k, v = _k5_inputs(b, 1, off + 1, hq, hkv, hd, torch.bfloat16, gen,
+                         slots=cap)
+    sdpa = _sdpa(q, k, v, False)
+    ms = _device_ms(lambda: flash_attention(q, k, v, q_offset=off), 50)
+    plain_ms = _device_ms(lambda: _k5_plain(q, k, v, rows=8, q_offset=off),
+                          10)
+    lib_ms = _device_ms(sdpa, 50)
+    loop_ms = _time(lambda: flash_attention(q, k, v, q_offset=off), 100)
+    n_ops = 4 * b * hq * hd * (off + 1)
+    n_bytes = 2 * (2 * b * hq * hd + 2 * b * (off + 1) * hkv * hd)
+    bound_ms, by = _bound(n_bytes, n_ops, BF16_FLOPS_PER_S)
+    res["decode"] = dict(shape=f"q (8,1,24,128) at {off}, kv (8,{off + 1},"
+                               f"8,128) of a {cap}-slot cache, bf16",
+                         ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=bound_ms, bound_by=by,
+                         tb_per_s=n_bytes / (ms * 1e-3) / 1e12,
+                         timed_by="device activity (torch.profiler)",
+                         event_loop_ms=loop_ms)
+    del q, k, v, sdpa
+    torch.cuda.empty_cache()
+    for name, r in res.items():
+        log(f"[timing] K5 {name} {r['shape']}: {r['ms']:.4f} ms/launch, "
+            f"plain {r['plain_ms']:.4f} ms, scaled_dot_product_attention "
+            f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}); timed by {r['timed_by']}"
+            + (f" (CUDA events around a loop of launches: "
+               f"{r['event_loop_ms']:.4f} ms each)"
+               if "event_loop_ms" in r else ""))
+    return res
+
+
+def time_k1(gen):
+    """Phase 18b: K1 at cell D's shape."""
+    from repro_torch.kernels.ce_score.ops import ce_score
+    from repro_torch.kernels.ce_score.ref import ce_score_ref
+    T, V = 8 * 1024, 128256
+    z = torch.randn((T, V), generator=gen, device="cuda").to(torch.bfloat16)
+    y = torch.randint(0, V, (T,), generator=gen, device="cuda",
+                      dtype=torch.int32)
+    ms = _time(lambda: ce_score(z, y), 20)
+    plain_ms = _time(lambda: ce_score_ref(z, y), 3)
+    # every logit read once, labels read, two f32 outputs written; ~8 f32
+    # ops a logit outside the tensor cores
+    n_bytes = T * V * 2 + T * 4 + 2 * T * 4
+    bound_ms, by = _bound(n_bytes, 8 * T * V, F32_FLOPS_PER_S)
+    log(f"[timing] K1 ({T}, {V}) bf16: {ms:.4f} ms/launch, plain "
+        f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({by}: "
+        f"{n_bytes / 1e9:.3f} GB), {n_bytes / (ms * 1e-3) / 1e12:.3f} TB/s "
+        f"achieved; no single PyTorch call computes it")
+    del z, y
+    torch.cuda.empty_cache()
+    return ms, plain_ms, bound_ms, by
+
+
 
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py needs a CUDA GPU; torch finds none")
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.kernels.ce_score import ce_score as k4
+    from repro_torch.kernels.ce_score import ce_score as k1k4
+    from repro_torch.kernels.flash_attn import flash_attn as k5
     from repro_torch.kernels.topk_keys import topk_keys as k6
+    csrc = "src/repro_torch/kernels/{}/csrc/{}"
     kernels = [dict(name="ce_score_block", route="cuda",
-                    source="src/repro_torch/kernels/ce_score/csrc/"
-                           "ce_score_block.cu",
+                    source=csrc.format("ce_score", "ce_score_block.cu"),
                     replaces="src/repro/kernels/ce_score/ce_score.py:144",
-                    sources=k4.SOURCES, held_by="phase 3 (K4) and 4 (prune)"),
+                    sources=k1k4.SOURCES,
+                    held_by="phase 3 (K4) and 4 (prune)"),
                dict(name="race_keys", route="cuda",
-                    source="src/repro_torch/kernels/topk_keys/csrc/"
-                           "race_keys.cu",
+                    source=csrc.format("topk_keys", "race_keys.cu"),
                     replaces="src/repro/kernels/topk_keys/topk_keys.py:71",
                     sources=k6.SOURCES,
-                    held_by="phase 8 (K6) and 9 (sharded)")]
+                    held_by="phase 8 (K6) and 9 (sharded)"),
+               dict(name="flash_attention", route="cuda",
+                    source=csrc.format("flash_attn", "flash_attn_fwd.cu"),
+                    replaces="src/repro/kernels/flash_attn/flash_attn.py:66",
+                    sources=k5.SOURCES,
+                    held_by="phase 13 (K5), 15 (serve lm-tiny) and 16 "
+                            "(cell C, against the plain route)"),
+               dict(name="ce_score", route="cuda",
+                    source=csrc.format("ce_score", "ce_score.cu"),
+                    replaces="src/repro/kernels/ce_score/ce_score.py:198",
+                    sources=k1k4.SOURCES_K1,
+                    held_by="phase 14 (K1) and 17 (cell D, against "
+                            "'fused')")]
 
     smi = card()
     build_all(kernels)
@@ -701,7 +1249,7 @@ def main():
     check_lm_tiny()
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
-    launches, rows, breakdown = run_slice(out)
+    launches, k5_cell_a, rows, breakdown = run_slice(out)
     ms, plain_ms, bound_ms, by = time_k4(gen)
     store = _warm_store()
     k6_abs, k6_rel = check_k6(store)
@@ -709,27 +1257,49 @@ def main():
     check_history_lm_tiny()
     k6_launches, hrows = run_history_slice()
     k6_t = time_k6(store)
+    del store
+    k5_err, k5_rel, k5_cases = check_k5(gen)
+    k1_err = check_k1(gen)
+    tiny_err = check_serve_lm_tiny()
+    k5_launches, cell_c, c_vs_plain = run_cell_c(out)
+    k1_launches, cell_d = run_cell_d()
+    k5_t = time_k5(gen)
+    k1_t = time_k1(gen)
 
+    def entry(i, **kw):
+        k = kernels[i]
+        return {"name": k["name"], "route": k["route"], "source": k["source"],
+                "replaces": k["replaces"], **kw, "held_by": k["held_by"]}
+    pre = k5_t["prefill"]
     line = {"kernels": [
-        {"name": "ce_score_block", "route": "cuda",
-         "source": kernels[0]["source"], "replaces": kernels[0]["replaces"],
-         "launches": launches, "max_abs_err": err, "ms": ms,
-         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
-         "library_ms": None, "held_by": kernels[0]["held_by"]},
-        {"name": "race_keys", "route": "cuda",
-         "source": kernels[1]["source"], "replaces": kernels[1]["replaces"],
-         "launches": k6_launches, "max_abs_err": k6_abs,
-         "max_rel_err": k6_rel, "ms": k6_t[0], "plain_ms": k6_t[1],
-         "bound_ms": k6_t[2], "bound_by": k6_t[3], "library_ms": None,
-         "topk_ms": k6_t[4], "h2d_ms": k6_t[5],
-         "held_by": kernels[1]["held_by"]}]}
+        entry(0, launches=launches, max_abs_err=err, ms=ms,
+              plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
+              library_ms=None),
+        entry(1, launches=k6_launches, max_abs_err=k6_abs,
+              max_rel_err=k6_rel, ms=k6_t[0], plain_ms=k6_t[1],
+              bound_ms=k6_t[2], bound_by=k6_t[3], library_ms=None,
+              topk_ms=k6_t[4], h2d_ms=k6_t[5]),
+        entry(2, launches=k5_launches, max_abs_err=k5_err,
+              max_row_rel_err=k5_rel, ms=pre["ms"],
+              plain_ms=pre["plain_ms"], bound_ms=pre["bound_ms"],
+              bound_by=pre["bound_by"], library_ms=pre["library_ms"],
+              timed_at="cell C prefill; decode in by_shape",
+              by_shape=k5_t, launches_by_path={
+                  "cell C serve": k5_launches,
+                  "cell D score": cell_d["k5_launches"],
+                  "cell A steps": k5_cell_a}),
+        entry(3, launches=k1_launches, max_abs_err=k1_err, ms=k1_t[0],
+              plain_ms=k1_t[1], bound_ms=k1_t[2], bound_by=k1_t[3],
+              library_ms=None)]}
     ok = {"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}}
     (out / "chip_smoke.json").write_text(json.dumps(
         {"card": smi, "steps": rows, "profile": breakdown,
-         "history_steps": hrows, "sharded_vs_f64_loop": vs_loop, **line,
-         **ok}, indent=1))
+         "history_steps": hrows, "sharded_vs_f64_loop": vs_loop,
+         "k5_cases": k5_cases, "serve_lm_tiny_err": tiny_err,
+         "cell_c": cell_c, "cell_c_vs_plain": c_vs_plain, "cell_d": cell_d,
+         **line, **ok}, indent=1))
     print(smi)
     print(json.dumps(line))
     print(json.dumps(ok), flush=True)

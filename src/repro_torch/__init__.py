@@ -4,6 +4,8 @@ Importance Sampling) for NVIDIA Hopper.
     import repro_torch
     state, history = repro_torch.train("llama3.2-3b", preset="prod",
                                        overrides={"steps": 3})
+    loss_ps, scores = repro_torch.score("llama3.2-3b", preset="prod")
+    out = repro_torch.serve("llama3.2-3b", batch=8, prompt_len=4096, gen=64)
 
 The port mirrors ``repro``'s layout module by module and imports nothing
 of it (nor of jax); the JAX package is the reference its tests hold it
@@ -16,6 +18,8 @@ import importlib
 _EXPORTS = {
     "Experiment": "repro_torch.api.experiment",
     "train": "repro_torch.api.experiment",
+    "score": "repro_torch.api.experiment",
+    "serve": "repro_torch.api.serving",
     "TrainLoop": "repro_torch.api.loop",
     "build_run": "repro_torch.api.config",
     "apply_overrides": "repro_torch.api.config",

@@ -6,6 +6,7 @@ optimizer together from one ``RunConfig`` and runs the ``TrainLoop``:
     import repro_torch
     state, history = repro_torch.train("llama3.2-3b", preset="prod",
                                        overrides={"steps": 3})
+    loss_ps, scores = repro_torch.score("llama3.2-3b", preset="prod")
 
 Everything runs on a CUDA device unless the caller passes ``device="cpu"``
 (as the CPU tests do); with no GPU present the default raises. Meshes,
@@ -14,6 +15,7 @@ yet.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch import obs
@@ -139,3 +141,30 @@ def train(cfg="lm-tiny", *, preset=None, overrides=None, source=None,
     run = _resolve_run(cfg, preset, overrides)
     exp = Experiment(run, source=source, device=device, hooks=hooks)
     return exp.fit(steps=steps, log_every=log_every)
+
+
+def score(cfg="lm-tiny", *, params=None, batch=None, gids=None, source=None,
+          preset=None, overrides=None, mesh=None, device=None):
+    """Score examples in one call: forward-only per-sample (loss, score)
+    through the ``ScoreEngine``, no train step involved. Returns numpy
+    (loss_ps, scores).
+
+    ``batch`` wins if given; else ``gids`` are gathered from the source;
+    else the source's first batch is scored. ``params=None`` scores a
+    model freshly initialised from ``run.seed``; otherwise ``params`` is a
+    ``{name: tensor}`` dict of the port's parameters (the train state's)."""
+    if mesh is not None:
+        raise NotImplementedError("sharded scoring (mesh=) is the "
+                                  "distributed slice's work, not ported yet")
+    run = _resolve_run(cfg, preset, overrides)
+    device = resolve_device(device)
+    gen = torch.Generator(device=device).manual_seed(run.seed)
+    lm = LM(run.model, device=device, generator=gen)
+    engine = ScoreEngine(lm, run)
+    if batch is None:
+        src = _make_source(run, source)
+        if gids is not None:
+            batch = src.gather(np.asarray(gids, np.int64))
+        else:
+            batch, _ = src.batch(PipelineState(), run.shape.global_batch)
+    return engine.score_host(params, batch)

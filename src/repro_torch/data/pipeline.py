@@ -52,6 +52,13 @@ class DataSource:
         """Global example ids of all rows of the next batch."""
         return (state.cursor + np.arange(batch_size, dtype=np.int64)) % self.n
 
+    def batch(self, state: PipelineState, batch_size: int):
+        """The next global batch and the state after it (at one host the
+        local indices are the global ones)."""
+        batch = self.gather(self.global_indices(state, batch_size),
+                            epoch=state.epoch)
+        return batch, state.advance(batch_size, self.n)
+
 
 class SyntheticLM(DataSource):
     """Deterministic synthetic LM data with heterogeneous difficulty.

@@ -3,8 +3,10 @@
 Each kernel is a ``.cu`` file with a plain C entry point, compiled by
 ``nvcc`` for Hopper (``-gencode arch=compute_90a,code=sm_90a -O3``) into a
 shared library and loaded with ``ctypes``: no PyTorch headers, so a build
-takes seconds. Libraries land in ``build/repro_torch_ext/`` at the repo
-root, named by a hash of their sources (an edited source rebuilds), with
+takes seconds. A kernel's sources are its ``.cu`` files, which ``nvcc``
+compiles, and the headers they include, which only enter the hash.
+Libraries land in ``build/repro_torch_ext/`` at the repo root, named by a
+hash of their sources (an edited source rebuilds), with
 the compiler's ``-Xptxas -v`` report beside them (``<name>.log``).
 Nothing builds at import time: the first launch of a kernel builds it.
 """
@@ -55,7 +57,8 @@ def build(name: str, sources) -> Path:
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_suffix(f".tmp{os.getpid()}")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *(str(s) for s in sources if Path(s).suffix == ".cu")]
     r = subprocess.run(cmd, capture_output=True, text=True)
     (BUILD_DIR / f"{name}.log").write_text(
         " ".join(cmd) + "\n" + r.stdout + r.stderr)

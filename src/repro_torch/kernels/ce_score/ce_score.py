@@ -1,16 +1,20 @@
-"""K4 on Hopper: the survival-gated CE + score chunk, hand-written CUDA.
+"""K1 and K4 on Hopper: the CE + score kernels, hand-written CUDA.
 
-Binds ``csrc/ce_score_block.cu`` (replacing the TPU kernel
-``ce_score_block_pallas`` of ``repro/kernels/ce_score/ce_score.py``) and
-registers it as ``torch.ops.repro_torch.ce_score_block``. The library is
-compiled by ``repro_torch.kernels.build`` on the first launch. The wrapper
-checks what the kernel takes, allocates the outputs and the per-token
-scratch, launches on PyTorch's current stream and raises if the launch
-fails: there is no fallback here (``ops.ce_score_block`` picks the plain
-version only for CPU tensors or ``interpret=True``).
+Binds ``csrc/ce_score.cu`` (K1, replacing the TPU kernel
+``ce_score_pallas`` of ``repro/kernels/ce_score/ce_score.py``) and
+``csrc/ce_score_block.cu`` (K4, replacing ``ce_score_block_pallas``), which
+share the per-token stream of ``csrc/ce_stream.cuh``, and registers them as
+``torch.ops.repro_torch.ce_score`` and ``torch.ops.repro_torch.
+ce_score_block``. The libraries are compiled by
+``repro_torch.kernels.build`` on the first launch. The wrappers check what
+the kernels take, allocate the outputs and scratch, launch on PyTorch's
+current stream and raise if a launch fails: there is no fallback here
+(``ops`` picks the plain versions only for CPU tensors or
+``interpret=True``).
 
-``launches`` counts the wrapper's launches; ``chip_smoke.py`` zeroes it
-around the main path to show the path went through the kernel.
+``launches`` counts K4's launches and ``ce_score_launches`` K1's;
+``chip_smoke.py`` zeroes them around a main path to show the path went
+through the kernels.
 """
 
 import ctypes
@@ -19,10 +23,57 @@ from pathlib import Path
 import torch
 from torch import Tensor
 
-SOURCES = (Path(__file__).with_name("csrc") / "ce_score_block.cu",)
+_CSRC = Path(__file__).with_name("csrc")
+SOURCES = (_CSRC / "ce_score_block.cu", _CSRC / "ce_stream.cuh")
+SOURCES_K1 = (_CSRC / "ce_score.cu", _CSRC / "ce_stream.cuh")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0
+ce_score_launches = 0
+
+
+def _k1_lib():
+    from repro_torch.kernels import build
+    fn = build.load("ce_score", SOURCES_K1).ce_score_launch
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn.argtypes = [p, i, ll, i, i, p, p, p, p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@torch.library.custom_op("repro_torch::ce_score", mutates_args=(),
+                         device_types="cuda")
+def ce_score_cuda(logits: Tensor, labels: Tensor) -> tuple[Tensor, Tensor]:
+    """logits (T, V) bf16/f32 with unit vocab stride (the row stride is
+    free), labels (T,) int32 → per-token (ce, g2), f32 (T,). A label
+    outside [0, V) gathers z_y = 0, as the TPU kernel's does."""
+    global ce_score_launches
+    if logits.dim() != 2 or logits.dtype not in _DTYPES:
+        raise ValueError(f"logits must be (T, V) float32/bfloat16, got "
+                         f"{tuple(logits.shape)} {logits.dtype}")
+    T, V = logits.shape
+    if logits.stride(1) != 1 and V > 1:
+        raise ValueError("logits need a unit stride on the vocab axis")
+    if labels.shape != (T,) or labels.dtype != torch.int32 \
+            or not labels.is_contiguous():
+        raise ValueError(f"labels must be a contiguous ({T},) int32 tensor, "
+                         f"got {tuple(labels.shape)} {labels.dtype}")
+    dev = logits.device
+    if labels.device != dev:
+        raise ValueError("logits and labels must share one device")
+    if T >= 2 ** 31 or V < 1:
+        raise ValueError(f"need 1 <= V and T < 2**31, got T={T}, V={V}")
+    ce = torch.empty((T,), dtype=torch.float32, device=dev)
+    g2 = torch.empty_like(ce)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _k1_lib()(logits.data_ptr(), _DTYPES[logits.dtype],
+                        logits.stride(0), T, V, labels.data_ptr(),
+                        ce.data_ptr(), g2.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"ce_score launch failed: cudaError {err}")
+    ce_score_launches += 1
+    return ce, g2
 
 
 def _lib():

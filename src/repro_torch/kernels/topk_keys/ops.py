@@ -13,13 +13,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch import obs
+from repro_torch.kernels import plain_route
 from repro_torch.kernels.topk_keys.ref import race_keys_ref, race_params
-
-
-def _plain(*tensors, interpret=None) -> bool:
-    """True when the plain version must run: the caller asked for it, or
-    the tensors lie on the CPU (where no CUDA kernel can launch)."""
-    return bool(interpret) or all(t.device.type == "cpu" for t in tensors)
 
 
 def _bottom_k(keys, k: int):
@@ -45,7 +40,7 @@ def race_keys(scores, seen, ctx, fill_pow, total, *, host_id=0, n_hosts=1,
     padded lane); ctx: the plan's ``selection.hash_context``;
     fill_pow/total: the reduced sufficient-stat scalars. Returns (n_local,)
     f32 keys, +inf on padded lanes; slot i's global id is i·H + host_id."""
-    if _plain(scores, seen, interpret=interpret):
+    if plain_route(scores, seen, interpret=interpret):
         return race_keys_ref(scores, seen, ctx, fill_pow, total,
                              host_id=host_id, n_hosts=n_hosts,
                              n_global=n_global, smoothing=smoothing,

@@ -1,5 +1,5 @@
 """The LM: train-forward, per-sample loss + importance score, pruned pool
-scoring (``repro.models.lm``).
+scoring, serving over KV caches (``repro.models.lm``).
 
 The per-sample score is the paper's upper bound Ĝᵢ (eq. 20). For softmax
 cross-entropy the last-layer pre-activation gradient is softmax(z) − 1_y,
@@ -17,7 +17,8 @@ import torch.nn.functional as F
 from torch.func import functional_call
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.transformer import Transformer
+from repro_torch.models.common import dtype_of
+from repro_torch.models.transformer import Transformer, caches_init
 
 
 def _valid_mask(labels):
@@ -82,15 +83,19 @@ def token_stats_fused(logits, labels):
 
 
 def token_stats(logits, labels, impl="fused"):
+    """``"pallas"`` is the per-token kernel K1 (``kernels.ce_score.ops.
+    ce_score``): forward only, it raises under autograd, as the reference's
+    ``jax.value_and_grad`` through its Pallas call does."""
     if impl == "naive":
         return token_stats_naive(logits, labels)
+    if impl == "pallas":
+        from repro_torch.kernels.ce_score import ops as ce_ops
+        return ce_ops.ce_score(logits, labels)
     if impl == "chunked":
         return token_stats_chunked(logits, labels)
     if impl == "fused":
         return token_stats_fused(logits, labels)
-    raise NotImplementedError(
-        f"score_impl {impl!r} is not ported yet (\"pallas\" is the "
-        f"ce_score_pallas kernel, a later slice)")
+    raise ValueError(f"unknown score_impl {impl!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -112,12 +117,18 @@ class LM(Transformer):
 
     # -- forward ------------------------------------------------------------
     def hidden(self, batch, *, remat=False, impl="auto"):
+        """Without ``batch["positions"]`` every row sits at 0..s−1, which is
+        the flash kernel's contract (``q_offset=0``); given positions take
+        the plain attention paths."""
         x = self.embed_inputs(batch)
         b, s = x.shape[:2]
         positions = batch.get("positions")
+        q_offset = None
         if positions is None:
             positions = torch.arange(s, device=x.device)[None].expand(b, s)
-        return self.apply_stack(x, positions, remat=remat, impl=impl)
+            q_offset = 0
+        return self.apply_stack(x, positions, remat=remat, impl=impl,
+                                q_offset=q_offset)
 
     def forward(self, batch, remat=False, impl="auto"):
         return self.logits_fn(self.hidden(batch, remat=remat, impl=impl))
@@ -180,3 +191,35 @@ class LM(Transformer):
             scores, alive, loss_ps, stats = pruned_pool_score(
                 logits, batch["labels"], ctx, k=k)
         return loss_ps, scores, alive, stats
+
+    # -- serving ------------------------------------------------------------
+    def caches(self, batch_size, max_len, dtype=None):
+        """Empty decode caches on the model's device, one per layer."""
+        return caches_init(self.cfg, batch_size, max_len,
+                           dtype or dtype_of(self.cfg), self.embed.device)
+
+    def serve_step(self, caches, batch, *, impl="auto", q_offset=None):
+        """One serve step: ``batch["tokens"]`` (b, s) new tokens at
+        ``batch["positions"]`` (b, s), or at q_offset + arange(s) in every
+        row when ``q_offset`` is given instead. Prefill = long s into empty
+        caches; decode = s == 1 into filled caches, updated in place.
+        Returns (logits of the last position (b, 1, V), caches).
+
+        ``q_offset`` is also the caller's word that every cache slot below
+        it holds its own position (a global cache filled from 0, as
+        ``repro_torch.serve`` keeps it); then attention on the card runs
+        through the flash kernel (``attention.attention_op``). Explicit
+        positions take the plain paths, which read the masks from them."""
+        x = self.embed_inputs(batch)
+        positions = batch.get("positions")
+        if q_offset is not None:
+            if positions is not None:
+                raise ValueError("serve_step takes positions or q_offset, "
+                                 "not both")
+            b, s = x.shape[:2]
+            positions = torch.arange(q_offset, q_offset + s,
+                                     dtype=torch.int32,
+                                     device=x.device)[None].expand(b, s)
+        h = self.apply_stack(x, positions, impl=impl, caches=caches,
+                             q_offset=q_offset)
+        return self.logits_fn(h[:, -1:]), caches

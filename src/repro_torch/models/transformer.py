@@ -6,7 +6,9 @@ port keeps one module per layer and loops (``stacked.p<i>`` is a
 ``ModuleList`` over the segment's repeats), so the per-layer modules map
 onto the stacked checkpoint leaves by their index
 (``repro_torch.checkpoint.interop``). ``RunConfig.remat`` checkpoints each
-block with ``torch.utils.checkpoint``.
+block with ``torch.utils.checkpoint``. Decode caches follow the same
+layout: ``caches["seg<i>"]["p0"][layer]`` is layer ``layer``'s cache
+(``attention.cache_init``), updated in place by the forward.
 """
 from __future__ import annotations
 
@@ -15,7 +17,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ATTN, ModelConfig
-from repro_torch.models.attention import GQA
+from repro_torch.models.attention import GQA, cache_init
 from repro_torch.models.common import (RMSNorm, dtype_of, embed_init,
                                        dense_init)
 from repro_torch.models.mlp import MLP
@@ -32,8 +34,9 @@ class Block(nn.Module):
         self.norm2 = RMSNorm(cfg.d_model, cfg.norm_eps, dt, device)
         self.ffn = MLP(cfg, device, gen)
 
-    def forward(self, x, positions, impl="auto"):
-        x = x + self.inner(self.norm1(x), positions, impl=impl)
+    def forward(self, x, positions, impl="auto", cache=None, q_offset=None):
+        x = x + self.inner(self.norm1(x), positions, impl=impl, cache=cache,
+                           q_offset=q_offset)
         return x + self.ffn(self.norm2(x))
 
 
@@ -48,13 +51,32 @@ class Segment(nn.Module):
         self.stacked = nn.ModuleDict({"p0": nn.ModuleList(
             Block(cfg, device, gen) for _ in range(seg.repeats))})
 
-    def forward(self, x, positions, remat=False, impl="auto"):
-        for block in self.stacked["p0"]:
-            if remat and torch.is_grad_enabled():
-                x = checkpoint(block, x, positions, impl, use_reentrant=False)
+    def forward(self, x, positions, remat=False, impl="auto", caches=None,
+                q_offset=None):
+        """The segment's layers in order (the reference's ``apply_segment``);
+        ``caches`` is this segment's ``{"p0": [cache per layer]}``."""
+        for i, block in enumerate(self.stacked["p0"]):
+            cache = None if caches is None else caches["p0"][i]
+            if remat and torch.is_grad_enabled() and cache is None:
+                x = checkpoint(block, x, positions, impl, None, q_offset,
+                               use_reentrant=False)
             else:
-                x = block(x, positions, impl=impl)
+                x = block(x, positions, impl=impl, cache=cache,
+                          q_offset=q_offset)
         return x
+
+
+def segment_cache_init(cfg: ModelConfig, seg, batch: int, max_len: int,
+                       dtype, device):
+    return {f"p{pi}": [cache_init(cfg, kind, batch, max_len, dtype, device)
+                       for _ in range(seg.repeats)]
+            for pi, kind in enumerate(seg.pattern)}
+
+
+def caches_init(cfg: ModelConfig, batch: int, max_len: int, dtype, device):
+    return {f"seg{i}": segment_cache_init(cfg, seg, batch, max_len, dtype,
+                                          device)
+            for i, seg in enumerate(cfg.segments)}
 
 
 class Transformer(nn.Module):
@@ -80,9 +102,14 @@ class Transformer(nn.Module):
     def embed_inputs(self, batch):
         return self.embed[batch["tokens"].long()]
 
-    def apply_stack(self, x, positions, remat=False, impl="auto"):
-        for seg in self.segments.values():
-            x = seg(x, positions, remat=remat, impl=impl)
+    def apply_stack(self, x, positions, remat=False, impl="auto",
+                    caches=None, q_offset=None):
+        """The segments and the final norm; ``caches`` (``caches_init``)
+        are updated in place. ``q_offset``: see ``attention.attention_op``."""
+        for name, seg in self.segments.items():
+            x = seg(x, positions, remat=remat, impl=impl,
+                    caches=None if caches is None else caches[name],
+                    q_offset=q_offset)
         return self.final_norm(x)
 
     def logits_fn(self, hidden):

@@ -6,7 +6,9 @@ parameters cast to ``score_dtype`` (bf16 by default: scores rank samples,
 they don't train them), and the pool kept on the device so the winners
 are gathered there (``take_rows``). The survival-pruned pass
 (``score_select(prune=...)``) routes through ``LM.pool_stats_pruned``
-and the K4 kernel.
+and the K4 kernel. Every scoring forward runs its attention through the
+flash kernel K5 on a CUDA device, and ``imp.score_impl="pallas"`` takes
+the per-token K1 (``LM.sample_stats`` → ``token_stats``).
 
 ``params`` is the train state's ``{name: tensor}`` dict. PyTorch runs
 eagerly, so where the reference caches jitted functions per batch

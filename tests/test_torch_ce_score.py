@@ -10,7 +10,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels.ce_score.ops import ce_score_block  # noqa: E402
+from repro_torch.kernels.ce_score.ops import ce_score, ce_score_block  # noqa: E402
 from repro_torch.kernels.ce_score.ref import (ce_score_block_ref,  # noqa: E402
                                               ce_score_ref)
 
@@ -78,6 +78,87 @@ def test_ce_score_ref_matches_reference(jax_k4):
     np.testing.assert_allclose(g2_p.numpy(), np.asarray(g2_j), rtol=RTOL)
 
 
+K1_CASES = [
+    # T, V, block_t, block_v (tests/test_kernels.py's tiles)
+    (16, 128, 8, 128),       # exact tiles
+    (13, 100, 8, 64),        # padding in both dims
+    (32, 1000, 16, 256),     # many vocab tiles
+    (1, 50, 8, 128),         # single token, one tile bigger than the data
+    (19, 129, 8, 128),       # both ragged, vocab pad of 127
+    (130, 1000, 64, 512),    # both ragged, larger tiles
+]
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 2e-4), ("bfloat16", 3e-2)])
+@pytest.mark.parametrize("T,V,bt,bv", K1_CASES)
+def test_ce_score_matches_reference(jax_k4, T, V, bt, bv, dtype, tol):
+    """K1 against the JAX op and oracle; labels forced onto column 0, the
+    last column and the first column of the last vocab tile."""
+    jnp, jax_ops, jax_ref = jax_k4
+    rng = np.random.RandomState(T * V)
+    z = (rng.randn(T, V) * 3).astype(np.float32)
+    y = rng.randint(0, V, (T,)).astype(np.int32)
+    y[0], y[1 % T], y[2 % T] = V - 1, (V // bv) * min(bv, V) % V, 0
+    jz = jnp.asarray(z).astype(getattr(jnp, dtype))
+    want_op = jax_ops.ce_score(jz, jnp.asarray(y), block_t=bt, block_v=bv)
+    want_ref = jax_ref.ce_score_ref(jz.astype(jnp.float32), jnp.asarray(y))
+    zt = torch.from_numpy(z).to(getattr(torch, dtype))
+    yt = torch.from_numpy(y)
+    got_op = ce_score(zt, yt, block_t=bt, block_v=bv)
+    got_ref = ce_score_ref(zt.float(), yt)
+    for g, r in zip(got_ref, want_ref):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=RTOL,
+                                   atol=ATOL)
+    for g, w_op, w_ref in zip(got_op, want_op, want_ref):
+        assert g.dtype == torch.float32 and g.shape == (T,)
+        np.testing.assert_allclose(g.numpy(), np.asarray(w_op), rtol=tol,
+                                   atol=tol)
+        np.testing.assert_allclose(g.numpy(), np.asarray(w_ref), rtol=tol,
+                                   atol=tol)
+
+
+def test_ce_score_extreme_logits_stable(jax_k4):
+    jnp, jax_ops, _ = jax_k4
+    z = np.asarray([[1e4, -1e4, 0.0, 5.0]] * 3, np.float32)
+    y = np.asarray([0, 1, 2], np.int32)
+    ce, g2 = ce_score(torch.from_numpy(z), torch.from_numpy(y))
+    assert bool(torch.isfinite(ce).all()) and bool(torch.isfinite(g2).all())
+    # label = argmax -> ce ~ 0, g2 ~ 0; label = argmin -> g2 ~ 2
+    assert float(ce[0]) == pytest.approx(0.0, abs=1e-3)
+    assert float(g2[0]) == pytest.approx(0.0, abs=1e-3)
+    assert float(g2[1]) == pytest.approx(2.0, abs=1e-3)
+    want = jax_ops.ce_score(jnp.asarray(z), jnp.asarray(y), block_t=8,
+                            block_v=128)
+    for g, w in zip((ce, g2), want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5,
+                                   atol=1e-3)
+
+
+def test_ce_score_batched_shapes(jax_k4):
+    """Leading dims flatten to tokens and come back."""
+    jnp, jax_ops, _ = jax_k4
+    rng = np.random.RandomState(0)
+    z = rng.randn(2, 5, 64).astype(np.float32)
+    y = rng.randint(0, 64, (2, 5)).astype(np.int32)
+    ce, g2 = ce_score(torch.from_numpy(z), torch.from_numpy(y))
+    assert ce.shape == (2, 5) and g2.shape == (2, 5)
+    want = jax_ops.ce_score(jnp.asarray(z), jnp.asarray(y))
+    for g, w in zip((ce, g2), want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=RTOL,
+                                   atol=ATOL)
+
+
+def test_ce_score_refuses_gradients():
+    """K1 has no gradient, as the Pallas kernel has no VJP."""
+    z = torch.randn(3, 7, requires_grad=True)
+    y = torch.zeros(3, dtype=torch.int32)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        ce_score(z, y)
+    with torch.no_grad():
+        ce, _ = ce_score(z, y)
+    assert ce.shape == (3,)
+
+
 def test_freeze_semantics_bitwise():
     """Dead row blocks emit exactly 0.0 and killing a block leaves every
     other row's bytes untouched; a half-dead block still computes."""
@@ -127,3 +208,28 @@ def test_kernel_matches_plain_on_gpu(cuda, dtype):
     want = ce_score_block_ref(*view, at, block_b=8)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [("bfloat16", 1e-4), ("float32", 1e-4)])
+def test_k1_kernel_matches_plain_on_gpu(cuda, dtype, tol):
+    """K1 against its plain version on the card, on the same (rounded)
+    logits: ragged T and V, labels at 0 and V − 1, a strided row view,
+    extreme logits."""
+    from repro_torch.kernels.ce_score import ce_score as kern
+    rng = np.random.default_rng(4)
+    T, V = 37, 50257
+    z = (rng.standard_normal((T, V + 3)) * 3).astype(np.float32)
+    z[5, :4] = [1e4, -1e4, 0.0, 5.0]
+    y = rng.integers(0, V, (T,)).astype(np.int32)
+    y[0], y[1], y[5] = 0, V - 1, 0
+    zt = torch.from_numpy(z).to(cuda, getattr(torch, dtype))[:, 1:V + 1]
+    yt = torch.from_numpy(y).to(cuda)
+    before = kern.ce_score_launches
+    got = ce_score(zt, yt)
+    assert kern.ce_score_launches == before + 1
+    want = ce_score_ref(zt, yt)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert bool(torch.isfinite(g).all())
+        torch.testing.assert_close(g, w, rtol=tol, atol=tol)

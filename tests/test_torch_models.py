@@ -1,7 +1,8 @@
 """The port's model against the JAX reference at lm-tiny size, f32, with
 the same parameters (carried through the checkpoint format) and the same
-seeded numpy inputs: logits through both attention branches, the three
-``token_stats`` implementations, and the per-sample loss/score."""
+seeded numpy inputs: logits through both plain attention branches and
+the forward-only flash route, the four ``token_stats`` implementations,
+and the per-sample loss/score."""
 import dataclasses
 
 import numpy as np
@@ -62,17 +63,50 @@ def test_config_copy_equals_reference(arch):
 @pytest.mark.parametrize("seq", [32, 320], ids=["naive", "online"])
 def test_logits_match_reference(models, seq):
     """seq 32 takes ``attention_op``'s naive branch, seq 320 the
-    ``online_attention`` one (q·k > 256²) on both sides."""
+    ``online_attention`` one (q·k > 256²) on both sides: the port's forward
+    runs with grad mode on, as training runs it (a forward-only call takes
+    the flash route, below)."""
     jlm, params, lm = models
     batch = _batch(seq, seed=seq)
     want, _ = jlm.logits(params, _j(batch))
-    with torch.no_grad():
-        got = lm(_t(batch))
+    got = lm(_t(batch)).detach()
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL,
                                rtol=0)
 
 
-@pytest.mark.parametrize("impl", ["naive", "chunked", "fused"])
+@pytest.mark.parametrize("seq", [32, 320])
+def test_forward_only_logits_take_the_flash_route(models, seq, monkeypatch):
+    """The flash route is for CUDA tensors only (on the card, without grad
+    mode and without explicit positions, every layer runs
+    ``flash_attention`` with q_offset 0: the ``gpu`` case
+    ``test_forward_only_route_is_chosen_on_cuda``). On the CPU the same
+    forward keeps the chunked plain paths, whose memory stays bounded, and
+    the logits match the reference."""
+    from repro_torch.kernels.flash_attn import ops as k5_ops
+    jlm, params, lm = models
+    calls = []
+    real = k5_ops.flash_attention
+
+    def spy(*a, **kw):
+        calls.append(kw["q_offset"])
+        return real(*a, **kw)
+    monkeypatch.setattr(k5_ops, "flash_attention", spy)
+    batch = _batch(seq, seed=seq)
+    want, _ = jlm.logits(params, _j(batch))
+    with torch.inference_mode():
+        got = lm(_t(batch))
+    assert calls == []
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL,
+                               rtol=0)
+    calls.clear()
+    with torch.inference_mode():        # explicit positions: plain paths
+        b = _t(batch)
+        b["positions"] = torch.arange(seq)[None].expand(2, seq)
+        lm(b)
+    assert calls == []
+
+
+@pytest.mark.parametrize("impl", ["naive", "chunked", "fused", "pallas"])
 def test_token_stats_match_reference(impl):
     rng = np.random.default_rng(7)
     z = (rng.standard_normal((3, 17, 9000)) * 3).astype(np.float32)
@@ -87,9 +121,15 @@ def test_token_stats_match_reference(impl):
 
 
 def test_token_stats_unported_impl_raises():
-    with pytest.raises(NotImplementedError, match="pallas"):
-        port_lm.token_stats(torch.zeros(2, 4), torch.zeros(2, dtype=torch.int32),
-                            impl="pallas")
+    """``"pallas"`` (K1) is forward only: under autograd it raises, as the
+    reference's gradient through its Pallas call does; an unknown impl
+    raises."""
+    z = torch.zeros(2, 4, requires_grad=True)
+    y = torch.zeros(2, dtype=torch.int32)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        port_lm.token_stats(z, y, impl="pallas")
+    with pytest.raises(ValueError, match="unknown score_impl"):
+        port_lm.token_stats(z, y, impl="nope")
 
 
 @pytest.mark.parametrize("weights", [False, True])

@@ -117,12 +117,17 @@ def test_import_boundary():
     out = json.loads(r.stdout.strip().splitlines()[-1])
     assert out["bad"] == []
     for mod in ("repro_torch.kernels.ce_score.ops",
+                "repro_torch.kernels.ce_score.ce_score",
+                "repro_torch.kernels.flash_attn.ops",
+                "repro_torch.kernels.flash_attn.flash_attn",
+                "repro_torch.api.serving",
+                "repro_torch.launch.serve",
                 "repro_torch.kernels.topk_keys.ops",
                 "repro_torch.kernels.topk_keys.topk_keys",
                 "repro_torch.distributed.collectives",
                 "repro_torch.sampler.store"):
         assert mod in out["modules"], mod
-    assert len(out["modules"]) >= 35
+    assert len(out["modules"]) >= 40
     # and statically, so a lazy import inside a function is caught too
     for path in [ROOT / "chip_smoke.py",
                  *sorted((ROOT / "src" / "repro_torch").rglob("*.py"))]:
@@ -145,6 +150,13 @@ def test_entry_points_default_to_the_gpu(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         launcher.main(["--arch", "lm-tiny", "--preset", "prod",
                        "--steps=1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        repro_torch.serve("lm-tiny", smoke=True, gen=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        repro_torch.score("lm-tiny", preset="smoke")
+    from repro_torch.launch import serve as serve_launcher
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve_launcher.main(["--arch", "lm-tiny", "--smoke", "--gen", "2"])
 
 
 def test_launcher_runs_on_cpu_when_asked(capsys):
