@@ -84,6 +84,35 @@ Phases, in order; each raises on failure, so the process exits non-zero:
               activity under the profiler, since a launch there is shorter
               than its dispatch.
 
+19. K2/K3     — ``row_score`` (K2) against its plain version on the card at
+              cell E's pool (12, 1024), at ``prod``'s pool (768, 4096) and a
+              ragged (37, 13), a 20 % mask, rtol ``K2_RTOL``; ``pool_keys``
+              (K3) at B = 12, 100, 768, 1024, ctx 0 and 2³²−1, a −1 pad lane:
+              keys bitwise the plain version's fed the same scores and 1/Σs
+              (else worst relative error within ``K6_RTOL``), bottom-(k+1)
+              equal; ``fused_presample`` and ``select_pool`` on seeded bf16
+              logits at (12, 1024, 128256) against ``fused_presample_ref``:
+              indices and gathered rows equal, weights and scores to 1e-5;
+20. presample lm-tiny — the ``presample`` step kind at lm-tiny on the card
+              against the same run on the CPU, ``gate="never"`` and
+              ``"always"`` (both runs handed one seeded numpy draw, a check
+              only): losses and stored scores to 1e-3;
+21. cell E   — ``repro_torch.train("llama3.2-3b", preset="prod", overrides=
+              {"imp.presample_impl": "step", ...}, gate="always")``: full
+              width and depth, pool 12, the cuts printed; counts zeroed just
+              before and read just after (K5: 28 a step; K1, K2, K3, K4: 0);
+              per step the loss, τ, weights, wall time, peak memory (step
+              ``PROFILED`` under ``torch.profiler``); then one
+              ``fused_presample`` on a fresh pool's logits from the final
+              params (K1, K2, K3 once each): scores against ``sample_stats``
+              (the step's scoring route) to 1e-4, the candidate set equal to
+              the host's float64 race, the gathered rows the pool's;
+22. K2/K3 timing — K2 at both shapes (inputs rotated through copies
+              that exceed the L2 cache), K3 at B = 12 and 768 (device time
+              under the profiler: a launch is shorter than its dispatch),
+              ``select_pool``, ``fused_presample`` and its K1 stage at cell
+              E's pool, each beside its plain version and its bound.
+
 Phase 6 also counts K5, which now runs cell A's forward-only pool scoring
 (28 launches a step).
 
@@ -135,6 +164,8 @@ K1_TOL = dict(rtol=1e-4, atol=1e-4)  # per-token f32 stats: __expf and the
                                      # summation order
 SERVE = dict(batch=8, prompt_len=4096, gen=64)  # cell C; cap 4160
 N_LAYERS = 28      # llama3.2-3b
+K2_RTOL = 1e-5     # K2 vs plain: f32 row sums in another order
+POOL = (3 * BATCH, 1024, 128256)   # cell E's pool: B, T, V
 
 
 def log(*a):
@@ -281,6 +312,9 @@ KERNEL_GROUPS = (  # first match wins; names as the profiler reports them
     ("K4 ce_score_block", ("ce_token_kernel", "row_sum_kernel")),
     ("K5 flash_attention", ("flash_bf16_kernel", "flash_f32_kernel",
                             "combine_kernel")),
+    ("K1/K2/K3 ce_score, row_score, pool_keys", ("ce_score_kernel",
+                                                 "row_score_kernel",
+                                                 "pool_keys_kernel")),
     ("matmul", ("gemm", "nvjet", "xmma", "cutlass", "sgemm")),
     ("memcpy/memset", ("Memcpy", "Memset")),
     ("elementwise/reduce", ("",)),
@@ -374,7 +408,7 @@ def _groups(by_name):
     return groups
 
 
-def step_breakdown(prof, rows, out):
+def step_breakdown(prof, rows, out, tag="profile", fname="profile_step"):
     """Device time of the profiled step by kernel, from torch.profiler.
     Busy time is the sum of device activity on the one stream the port
     uses; the idle share is taken against step 1's unprofiled wall time,
@@ -382,19 +416,19 @@ def step_breakdown(prof, rows, out):
     by_name = _device_time(prof)
     busy = sum(by_name.values())
     if busy == 0.0:
-        log("[profile] the profiler saw no device activity: breakdown not "
+        log(f"[{tag}] the profiler saw no device activity: breakdown not "
             "measured")
         return None
     groups = _groups(by_name)
     wall, steady = rows[PROFILED]["step_s"], rows[1]["step_s"]
-    log(f"[profile] step {PROFILED}: wall {wall:.4f} s (profiled), device "
+    log(f"[{tag}] step {PROFILED}: wall {wall:.4f} s (profiled), device "
         f"busy {busy:.4f} s; idle share against step 1's unprofiled "
         f"{steady:.4f} s: {1 - busy / steady:.3f}")
     for g, s in groups.items():
-        log(f"[profile]   {g}: {s * 1e3:.2f} ms ({s / busy:.3f} of busy)")
+        log(f"[{tag}]   {g}: {s * 1e3:.2f} ms ({s / busy:.3f} of busy)")
     for name, s in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
-        log(f"[profile]   {s * 1e3:9.2f} ms  {name[:100]}")
-    (out / "profile_step.txt").write_text(prof.key_averages().table(
+        log(f"[{tag}]   {s * 1e3:9.2f} ms  {name[:100]}")
+    (out / f"{fname}.txt").write_text(prof.key_averages().table(
         sort_by="self_cuda_time_total", row_limit=60))
     return {"step": PROFILED, "wall_s": wall, "busy_s": busy,
             "idle_share": 1 - busy / steady, "groups_s": groups}
@@ -511,6 +545,7 @@ def check_k6(store):
                                    atol=0)
         assert torch.equal(gs, ps), f"{name}: bottom-k slots differ"
         torch.testing.assert_close(gk, pk, rtol=K6_RTOL, atol=0)
+        bitwise = torch.equal(allk, allp)
         err = (allk[live] - allp[live]).abs()
         # a key of 0 (u rounded to 1) has no relative error to speak of
         tiny = torch.finfo(torch.float32).tiny
@@ -519,7 +554,8 @@ def check_k6(store):
         ab = float(err.max()) if live.any() else 0.0
         worst_abs, worst_rel = max(worst_abs, ab), max(worst_rel, rel)
         log(f"[k6] {name}: max |kernel - plain| = {ab:.3e} (relative "
-            f"{rel:.3e}, rtol {K6_RTOL}); bottom-{k} slots equal")
+            f"{rel:.3e}, rtol {K6_RTOL}); keys bitwise: {bitwise}; "
+            f"bottom-{k} slots equal")
         del gk, gs, pk, ps, allk, allp
     torch.cuda.empty_cache()
     return worst_abs, worst_rel
@@ -1209,6 +1245,416 @@ def time_k1(gen):
     return ms, plain_ms, bound_ms, by
 
 
+# ---------------------------------------------------------------------------
+# slice 4: Algorithm 1 on the device, the fused presample op, K2 and K3
+# ---------------------------------------------------------------------------
+def _fused_pool(gen, pad_frac=0.1):
+    """Cell E's pool shape: seeded bf16 logits whose rows differ in scale,
+    labels with ``pad_frac`` unsupervised, and the rows to gather."""
+    B, T, V = POOL
+    z = torch.empty((B, T, V), dtype=torch.bfloat16, device="cuda")
+    for r, sc in enumerate(torch.linspace(0.5, 4.0, B).tolist()):
+        z[r] = torch.randn((T, V), generator=gen, device="cuda").mul_(sc)
+    y = torch.randint(0, V, (B, T), generator=gen, device="cuda",
+                      dtype=torch.int32)
+    y[torch.rand((B, T), generator=gen, device="cuda") < pad_frac] = -1
+    toks = torch.randint(0, V, (B, T), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    return z, y, {"tokens": toks, "labels": y}
+
+
+def _k3_inputs(B, gen):
+    """Pool scores with a −1 pad lane and their 1/Σs, on the card."""
+    s = torch.rand(B, generator=gen, device="cuda").mul_(5.0).add_(0.01)
+    s[B // 2] = -1.0
+    return s, (1.0 / torch.clamp(s.clamp(min=0).sum(), min=1e-20)).reshape(1)
+
+
+def check_k2_k3(gen):
+    """Phase 19. Returns the worst errors and what the fused op gave."""
+    from repro_torch.kernels.fused_presample import fused_presample as fp
+    from repro_torch.kernels.fused_presample.ops import (_pool_keys,
+                                                         _row_score,
+                                                         fused_presample,
+                                                         select_pool)
+    from repro_torch.kernels.fused_presample.ref import (fused_presample_ref,
+                                                         select_pool_ref)
+    from repro_torch.kernels.topk_keys.ops import _bottom_k
+    from repro_torch.sampler.selection import hash_context
+    res = {"k2_max_abs_err": 0.0, "k2_max_rel_err": 0.0,
+           "k3_max_abs_err": 0.0, "k3_max_rel_err": 0.0, "k3_bitwise": True}
+    for B, T in ((12, 1024), (768, 4096), (37, 13)):
+        g2 = torch.rand((B, T), generator=gen, device="cuda").mul_(2.0)
+        mask = torch.rand((B, T), generator=gen, device="cuda") >= 0.2
+        got, want = _row_score(g2, mask), fp.row_score_math(g2, mask)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=K2_RTOL, atol=0)
+        rel = float(((got - want).abs() / want).max())
+        res["k2_max_rel_err"] = max(res["k2_max_rel_err"], rel)
+        res["k2_max_abs_err"] = max(res["k2_max_abs_err"],
+                                    float((got - want).abs().max()))
+        log(f"[k2] ({B}, {T}), 20 % masked: max |kernel - plain| / plain = "
+            f"{rel:.3e} (rtol {K2_RTOL})")
+    for B in (12, 100, 768, 1024):
+        for ctx in (0, 0xFFFFFFFF):
+            s, inv_total = _k3_inputs(B, gen)
+            got = _pool_keys(s, ctx, inv_total)
+            want = fp.pool_keys_plain(s, ctx, inv_total)
+            torch.cuda.synchronize()
+            live = torch.isfinite(want)
+            assert torch.equal(torch.isfinite(got), live), "pad lanes differ"
+            assert int((~live).sum()) == 1
+            bitwise = torch.equal(got, want)
+            tiny = torch.finfo(torch.float32).tiny
+            rel = float(((got[live] - want[live]).abs()
+                         / want[live].abs().clamp(min=tiny)).max())
+            k = B // 4
+            assert torch.equal(_bottom_k(got, k + 1)[1],
+                               _bottom_k(want, k + 1)[1]), (B, ctx)
+            if not bitwise:
+                assert rel <= K6_RTOL, (B, ctx, rel)
+            res["k3_bitwise"] &= bitwise
+            res["k3_max_rel_err"] = max(res["k3_max_rel_err"], rel)
+            res["k3_max_abs_err"] = max(
+                res["k3_max_abs_err"],
+                float((got[live] - want[live]).abs().max()))
+            log(f"[k3] B={B}, ctx {ctx:#x}, one pad lane: keys bitwise "
+                f"{bitwise} (max relative error {rel:.3e}); bottom-{k + 1} "
+                f"rows equal")
+    # the whole op at cell E's pool, against the unfused plain composition
+    B, T, V = POOL
+    k = BATCH
+    z, y, rows = _fused_pool(gen)
+    ctx = hash_context(0, 4211, 21)
+    sel, idx, w, sc = fused_presample(z, y, rows, ctx, k=k)
+    sel_r, idx_r, w_r, sc_r = fused_presample_ref(z, y, rows, ctx, k=k)
+    torch.cuda.synchronize()
+    assert torch.equal(idx, idx_r), (idx, idx_r)
+    for name in rows:
+        assert torch.equal(sel[name], sel_r[name]), name
+        assert torch.equal(sel[name], rows[name][idx]), name
+    torch.testing.assert_close(w, w_r, rtol=1e-5, atol=0)
+    torch.testing.assert_close(sc, sc_r, rtol=1e-5, atol=1e-6)
+    # the selection stage alone on the op's scores: the same winners
+    got, want = select_pool(sc, ctx, k=k), select_pool_ref(sc, ctx, k=k)
+    assert torch.equal(got[0], want[0]), (got[0], want[0])
+    for a, b in zip(got[1:], want[1:]):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=0)
+    res.update(
+        op_idx=idx.tolist(),
+        op_score_max_rel_err=float(((sc - sc_r).abs() / sc_r).max()),
+        op_weight_max_rel_err=float(((w - w_r).abs() / w_r).max()))
+    log(f"[fused op] ({B}, {T}, {V}) bf16, k {k}: indices {idx.tolist()} = "
+        f"plain composition's, gathered rows equal; scores within "
+        f"{res['op_score_max_rel_err']:.3e}, weights within "
+        f"{res['op_weight_max_rel_err']:.3e} (relative, <= 1e-5); "
+        f"select_pool on the op's scores = select_pool_ref's")
+    del z, y, rows, sel, sel_r
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def check_presample_lm_tiny():
+    """Phase 20: the ``presample`` step kind at lm-tiny on the card and on
+    the CPU from the same params, never and always taking the IS branch.
+    The IS branch's draw is replaced, for this check only, by one seeded
+    numpy table both runs read in turn (torch's CUDA and CPU generators
+    give other numbers from one seed)."""
+    from repro_torch.api import Experiment, build_run
+    from repro_torch.checkpoint import interop
+    from repro_torch.core import importance
+    from repro_torch.kernels.flash_attn import flash_attn as k5
+    steps = 4
+    run = build_run("lm-tiny", preset="smoke", overrides={
+        "shape.seq_len": 64, "shape.global_batch": 4, "steps": steps,
+        "obs.enabled": False})
+    b = run.shape.global_batch
+    table = np.random.default_rng(0).integers(
+        0, b * run.imp.presample_ratio, (steps, b))
+    calls = {}
+
+    def shared_draw(generator, g, n):   # each run has its own generator
+        i = calls[id(generator)] = calls.get(id(generator), -1) + 1
+        return torch.from_numpy(table[i, :n]).to(g.device)
+    real = importance.sample_with_replacement
+    res = {}
+    for gate in ("never", "always"):
+        calls.clear()
+        if gate == "always":
+            importance.sample_with_replacement = shared_draw
+        try:
+            gpu = Experiment(run, gate=gate)
+            cpu = Experiment(run, device="cpu", gate=gate)
+            interop.load_params(cpu.lm, interop.params_to_numpy(gpu.lm))
+            before = k5.launches
+            _, hg = gpu.fit()
+            launched = k5.launches - before
+            _, hc = cpu.fit()
+        finally:
+            importance.sample_with_replacement = real
+        for a, c in zip(hg, hc):
+            assert math.isfinite(a["loss"])
+            assert abs(a["loss"] - c["loss"]) < 1e-3, (a["loss"], c["loss"])
+            assert a["is_active"] == c["is_active"] == float(
+                gate == "always")
+            assert abs(a["tau"] - c["tau"]) < 1e-3, (a["tau"], c["tau"])
+        # every step of each run drew once from the shared table
+        assert sorted(calls.values()) == ([steps - 1] * 2 if gate == "always"
+                                          else []), calls
+        torch.testing.assert_close(
+            torch.from_numpy(gpu.sampler.store.scores),
+            torch.from_numpy(cpu.sampler.store.scores), rtol=1e-3, atol=1e-4)
+        np.testing.assert_array_equal(gpu.sampler.store.seen,
+                                      cpu.sampler.store.seen)
+        # the IS branch scores its pool forward-only: K5 in every layer
+        n_layers = gpu.run.model.segments[0].repeats
+        assert launched == (n_layers * steps if gate == "always" else 0), \
+            launched
+        res[gate] = dict(gpu_loss=[h["loss"] for h in hg],
+                         cpu_loss=[h["loss"] for h in hc], k5=launched)
+        log(f"[presample lm-tiny] gate {gate}: gpu losses "
+            f"{[round(h['loss'], 5) for h in hg]} = cpu "
+            f"{[round(h['loss'], 5) for h in hc]} (to 1e-3); τ̂ "
+            f"{[round(h['tau'], 4) for h in hg]}; stored scores equal to "
+            f"1e-3; K5 launches {launched}")
+    return res
+
+
+CELL_E = {"imp.presample_impl": "step", "shape.global_batch": BATCH,
+          "shape.seq_len": 1024, "steps": STEPS, "obs.enabled": False}
+CELL_E_CUTS = (
+    "cuts from prod: seq_len 4096 -> 1024; global_batch 256 -> "
+    f"{BATCH} (pool {3 * BATCH}); steps 1000 -> {STEPS}; presample fused + "
+    "conservative pruning -> the in-step presample kind (the slice's point)"
+    ", gate='always' so every step takes the IS branch; telemetry on -> "
+    "off; checkpointing on -> none. Width, depth (28 layers) and vocab are "
+    "not cut.")
+
+
+def run_cell_e(out):
+    """Phase 21: Algorithm 1 inside the step at llama3.2-3b full width
+    (step ``PROFILED`` under ``torch.profiler``, its table to
+    ``chiprun_out/profile_cell_e.txt``), then the fused device op on a
+    fresh pool from the final params."""
+    import repro_torch
+    from repro_torch.api import Hook
+    from repro_torch.core import importance
+    from repro_torch.data.pipeline import to_device
+    from repro_torch.kernels.ce_score import ce_score as k1k4
+    from repro_torch.kernels.flash_attn import flash_attn as k5
+    from repro_torch.kernels.fused_presample import fused_presample as fp
+    from repro_torch.kernels.fused_presample.ops import fused_presample
+    from repro_torch.kernels.topk_keys import topk_keys as k6
+    from repro_torch.sampler import selection
+    from torch.profiler import ProfilerActivity, profile
+    log(f"[cell E] repro_torch.train('llama3.2-3b', preset='prod', "
+        f"overrides={CELL_E}, gate='always')")
+    log(f"[cell E] {CELL_E_CUTS}")
+    weights = []
+    real_w = importance.unbiased_weights
+
+    def record_weights(g, idx):      # observes the step's weights, as is
+        w = real_w(g, idx)
+        weights.append(w)
+        return w
+
+    class StepLog(Hook):
+        def __init__(self):
+            self.rows = []
+            self.prof = profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA])
+
+        def on_step_start(self, loop, step, b, meta):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            if step == PROFILED:
+                self.prof.start()
+            self.t0 = time.perf_counter()
+
+        def on_step_end(self, loop, step, m):
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - self.t0
+            if step == PROFILED:
+                self.prof.stop()
+            w = weights[-1]
+            row = dict(step=step, loss=m["loss"], tau=m["tau"],
+                       is_active=m["is_active"], w_min=float(w.min()),
+                       w_max=float(w.max()), step_s=wall,
+                       profiled=step == PROFILED,
+                       peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+            self.rows.append(row)
+            log("[cell E] " + json.dumps(row))
+
+        def on_loop_end(self, loop, state, history):
+            self.exp = loop.exp
+
+    hook = StepLog()
+    gc.collect()
+    torch.cuda.empty_cache()
+    importance.unbiased_weights = record_weights
+    counters = ((k1k4, "ce_score_launches"), (k1k4, "launches"),
+                (k5, "launches"), (k6, "launches"),
+                (fp, "row_score_launches"), (fp, "pool_keys_launches"))
+    try:
+        for mod, name in counters:
+            setattr(mod, name, 0)
+        t0 = time.perf_counter()
+        _, history = repro_torch.train("llama3.2-3b", preset="prod",
+                                       overrides=CELL_E, gate="always",
+                                       hooks=[hook])
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        k1, k4, k5n, k6n, k2, k3 = (getattr(m, n) for m, n in counters)
+    finally:
+        importance.unbiased_weights = real_w
+    log(f"[cell E] {STEPS} steps in {total:.1f} s (model build included); "
+        f"K5 {k5n} ({k5n / STEPS:g} a step, the IS branch's scoring "
+        f"forward), K1 {k1}, K2 {k2}, K3 {k3}, K4 {k4}, K6 {k6n} (not on "
+        f"this path)")
+    assert len(history) == STEPS
+    assert all(math.isfinite(h["loss"]) for h in history), history
+    assert all(h["is_active"] == 1.0 for h in history), history
+    assert k5n == N_LAYERS * STEPS, k5n
+    assert (k1, k2, k3, k4, k6n) == (0, 0, 0, 0, 0)
+    for r in hook.rows:
+        assert math.isfinite(r["w_min"]) and r["w_min"] > 0, r
+    breakdown = step_breakdown(hook.prof, hook.rows, out, "profile E",
+                               "profile_cell_e")
+    exp = hook.exp
+    del history
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the fused device op on the next pool, from the trained params
+    B, T, V = POOL
+    pool = to_device(exp.source.gather(np.arange(B * STEPS, B * (STEPS + 1)),
+                                       epoch=0), "cuda")
+    ctx = selection.hash_context(exp.run.seed, 4211, STEPS)
+    with torch.inference_mode():
+        logits = exp.lm(pool)
+        for mod, name in counters:
+            setattr(mod, name, 0)
+        sel, idx, w, sc = fused_presample(logits, pool["labels"], pool, ctx,
+                                          k=BATCH)
+        torch.cuda.synchronize()
+        op = dict(k1=k1k4.ce_score_launches, k2=fp.row_score_launches,
+                  k3=fp.pool_keys_launches, k4=k1k4.launches)
+        del logits
+        _, want = exp.lm.sample_stats(pool, score_impl=exp.run.imp.score_impl)
+    assert (op["k1"], op["k2"], op["k3"], op["k4"]) == (1, 1, 1, 0), op
+    rel = float(((sc - want).abs() / want).max())
+    assert rel < 1e-4, rel
+    host_idx, _, host_w, _ = selection.presample_race_select(
+        sc.cpu().numpy(), BATCH, ctx=ctx)
+    assert set(idx.tolist()) == set(host_idx.tolist()), (idx, host_idx)
+    for name, v in pool.items():
+        assert torch.equal(sel[name], v[idx]), name
+    op.update(idx=idx.tolist(), host_idx=host_idx.tolist(),
+              score_max_rel_err_vs_sample_stats=rel,
+              weights=w.tolist(), host_weights=list(map(float, host_w)))
+    log(f"[cell E] fused_presample on the next pool's logits "
+        f"({B}, {T}, {V}) from the final params: K1 {op['k1']}, K2 "
+        f"{op['k2']}, K3 {op['k3']}; scores within {rel:.3e} of sample_stats "
+        f"(< 1e-4); candidates {sorted(idx.tolist())} = the host float64 "
+        f"race's; gathered rows = the pool's rows at idx")
+    del exp, hook.exp, pool, sel, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return hook.rows, op, total, breakdown
+
+
+def time_k2_k3(gen):
+    """Phase 22: K2, K3, select_pool and the fused op per call, beside
+    their plain versions and bounds. K2 and K3 launches, and the selection
+    stage, take less device time than the host needs to issue them, so
+    their time is their device activity under the profiler (CUDA events
+    around a loop of calls kept beside); the fused op by CUDA events."""
+    from repro_torch.kernels.fused_presample import fused_presample as fp
+    from repro_torch.kernels.fused_presample.ops import (_pool_keys,
+                                                         _row_score,
+                                                         fused_presample,
+                                                         select_pool)
+    from repro_torch.kernels.fused_presample.ref import (fused_presample_ref,
+                                                         select_pool_ref)
+    res = {}
+    for B, T in ((12, 1024), (768, 4096)):
+        # enough copies of the inputs to fill the 50 MB L2 cache 2.5 times,
+        # called in turn: each launch reads its inputs from HBM (one set,
+        # called again and again, is read from L2, faster than the bound)
+        n_sets = max(2, -(-125_000_000 // (B * T * 5)))
+        sets = [(torch.rand((B, T), generator=gen, device="cuda").mul_(2.0),
+                 torch.rand((B, T), generator=gen, device="cuda") >= 0.2)
+                for _ in range(n_sets)]
+        turn = iter(range(10 ** 9))
+        k = lambda: _row_score(*sets[next(turn) % n_sets])
+        p = lambda: fp.row_score_math(*sets[next(turn) % n_sets])
+        warm = lambda: _row_score(*sets[0])
+        # g2 and the byte mask read once, the scores written; a multiply-add
+        # a token outside the tensor cores
+        bound_ms, by = _bound(B * T * 5 + B * 4, 2 * B * T, F32_FLOPS_PER_S)
+        res[f"K2 ({B}, {T})"] = dict(
+            ms=_device_ms(k, 200), plain_ms=_device_ms(p, 50),
+            l2_warm_ms=_device_ms(warm, 200), event_loop_ms=_time(k, 200),
+            plain_event_loop_ms=_time(p, 50), bound_ms=bound_ms, bound_by=by)
+        del sets
+    for B in (12, 768):
+        s, inv = _k3_inputs(B, gen)
+        k, p = (lambda: _pool_keys(s, 77, inv)), \
+            (lambda: fp.pool_keys_plain(s, 77, inv))
+        # scores and 1/Σs read, keys written; ~40 ops a row (two fmix32
+        # rounds, the uniform, a log, a multiply, a divide)
+        bound_ms, by = _bound(B * 8 + 4, 40 * B, F32_FLOPS_PER_S)
+        res[f"K3 ({B},)"] = dict(
+            ms=_device_ms(k, 200), plain_ms=_device_ms(p, 50),
+            event_loop_ms=_time(k, 200), plain_event_loop_ms=_time(p, 50),
+            bound_ms=bound_ms, bound_by=by)
+    B, T, V = POOL
+    k = BATCH
+    z, y, rows = _fused_pool(gen)
+    ctx = 12345
+    sc = fused_presample(z, y, rows, ctx, k=k)[3]
+    sk, sp = (lambda: select_pool(sc, ctx, k=k)), \
+        (lambda: select_pool_ref(sc, ctx, k=k))
+    bound_ms, by = _bound(B * 4 + k * 20 + 4, 60 * B, F32_FLOPS_PER_S)
+    res[f"select_pool ({B},) k {k}"] = dict(
+        ms=_device_ms(sk, 100), plain_ms=_device_ms(sp, 50),
+        event_loop_ms=_time(sk, 100), plain_event_loop_ms=_time(sp, 50),
+        bound_ms=bound_ms, bound_by=by)
+    fk = lambda: fused_presample(z, y, rows, ctx, k=k)
+    fpl = lambda: fused_presample_ref(z, y, rows, ctx, k=k)
+    # the logits read once (K1), labels, the k winning rows read and
+    # written, the scores, indices and weights; ~8 f32 ops a logit
+    row_bytes = sum(v[0].numel() * v.element_size() for v in rows.values())
+    n_bytes = z.numel() * 2 + B * T * 4 + 2 * k * row_bytes + B * 4 + k * 12
+    bound_ms, by = _bound(n_bytes, 8 * B * T * V, F32_FLOPS_PER_S)
+    # the op and its K1 stage by CUDA events only: a launch here is far
+    # longer than its dispatch, and the profiler's device-activity sum
+    # missed K1's launches late in this process (none of 5 seen)
+    res[f"fused_presample ({B}, {T}, {V}) bf16 k {k}"] = dict(
+        ms=_time(fk, 20), plain_ms=_time(fpl, 3), bound_ms=bound_ms,
+        bound_by=by)
+    from repro_torch.kernels.ce_score.ops import ce_score
+    zf, yf = z.reshape(-1, V), torch.clamp(y.reshape(-1), min=0)
+    k1 = lambda: ce_score(zf, yf)
+    res[f"K1 ({B * T}, {V}) bf16, the op's first stage"] = dict(
+        ms=_time(k1, 20), bound_ms=_bound(z.numel() * 2 + B * T * 12,
+                                          8 * z.numel(), F32_FLOPS_PER_S)[0],
+        bound_by="bytes")
+    for name, r in res.items():
+        log(f"[timing] {name}: {r['ms']:.5f} ms ("
+            + ("device" if "event_loop_ms" in r else "CUDA events")
+            + (f"), plain {r['plain_ms']:.5f} ms" if "plain_ms" in r else ")")
+            + f", bound {r['bound_ms']:.6f} ms ({r['bound_by']})"
+            + (f"; CUDA events around a loop of calls {r['event_loop_ms']:.5f}"
+               f" ms, plain {r['plain_event_loop_ms']:.5f} ms"
+               if "event_loop_ms" in r else "")
+            + (f"; the same inputs every launch (L2-warm) "
+               f"{r['l2_warm_ms']:.5f} ms" if "l2_warm_ms" in r else ""))
+    del z, y, rows, sc, zf, yf
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
 
 def main():
     if not torch.cuda.is_available():
@@ -1216,8 +1662,10 @@ def main():
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels.ce_score import ce_score as k1k4
     from repro_torch.kernels.flash_attn import flash_attn as k5
+    from repro_torch.kernels.fused_presample import fused_presample as fp
     from repro_torch.kernels.topk_keys import topk_keys as k6
     csrc = "src/repro_torch/kernels/{}/csrc/{}"
+    fp_tpu = "src/repro/kernels/fused_presample/fused_presample.py:{}"
     kernels = [dict(name="ce_score_block", route="cuda",
                     source=csrc.format("ce_score", "ce_score_block.cu"),
                     replaces="src/repro/kernels/ce_score/ce_score.py:144",
@@ -1239,7 +1687,19 @@ def main():
                     replaces="src/repro/kernels/ce_score/ce_score.py:198",
                     sources=k1k4.SOURCES_K1,
                     held_by="phase 14 (K1) and 17 (cell D, against "
-                            "'fused')")]
+                            "'fused')"),
+               dict(name="row_score", route="cuda",
+                    source=csrc.format("fused_presample", "row_score.cu"),
+                    replaces=fp_tpu.format(50), sources=fp.SOURCES_K2,
+                    held_by="phase 19 (K2, and the fused op against "
+                            "fused_presample_ref) and 21 (cell E's op "
+                            "against sample_stats)"),
+               dict(name="pool_keys", route="cuda",
+                    source=csrc.format("fused_presample", "pool_keys.cu"),
+                    replaces=fp_tpu.format(108), sources=fp.SOURCES_K3,
+                    held_by="phase 19 (K3 keys against the plain version's, "
+                            "the fused op against fused_presample_ref) and "
+                            "21 (cell E's op against the host race)")]
 
     smi = card()
     build_all(kernels)
@@ -1265,6 +1725,10 @@ def main():
     k1_launches, cell_d = run_cell_d()
     k5_t = time_k5(gen)
     k1_t = time_k1(gen)
+    k23 = check_k2_k3(gen)
+    tiny_presample = check_presample_lm_tiny()
+    e_rows, e_op, e_total, e_profile = run_cell_e(out)
+    k23_t = time_k2_k3(gen)
 
     def entry(i, **kw):
         k = kernels[i]
@@ -1290,7 +1754,26 @@ def main():
                   "cell A steps": k5_cell_a}),
         entry(3, launches=k1_launches, max_abs_err=k1_err, ms=k1_t[0],
               plain_ms=k1_t[1], bound_ms=k1_t[2], bound_by=k1_t[3],
-              library_ms=None)]}
+              library_ms=None, launches_by_path={
+                  "cell D score": k1_launches,
+                  "cell E fused_presample op": e_op["k1"]}),
+        entry(4, launches=e_op["k2"], max_abs_err=k23["k2_max_abs_err"],
+              max_rel_err=k23["k2_max_rel_err"], **{
+                  k: k23_t["K2 (12, 1024)"][k]
+                  for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+              library_ms=None, timed_by="device activity (torch.profiler)",
+              timed_at="cell E's pool (12, 1024); prod's in by_shape",
+              by_shape={k: v for k, v in k23_t.items()
+                        if k.startswith("K2")}),
+        entry(5, launches=e_op["k3"], max_abs_err=k23["k3_max_abs_err"],
+              max_rel_err=k23["k3_max_rel_err"],
+              bitwise=k23["k3_bitwise"], **{
+                  k: k23_t["K3 (12,)"][k]
+                  for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+              library_ms=None, timed_by="device activity (torch.profiler)",
+              timed_at="cell E's pool, B = 12; B = 768 in by_shape",
+              by_shape={k: v for k, v in k23_t.items()
+                        if k.startswith("K3")})]}
     ok = {"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}}
@@ -1299,6 +1782,10 @@ def main():
          "history_steps": hrows, "sharded_vs_f64_loop": vs_loop,
          "k5_cases": k5_cases, "serve_lm_tiny_err": tiny_err,
          "cell_c": cell_c, "cell_c_vs_plain": c_vs_plain, "cell_d": cell_d,
+         "k2_k3": k23, "k2_k3_timing": k23_t,
+         "presample_lm_tiny": tiny_presample,
+         "cell_e_steps": e_rows, "cell_e_op": e_op, "cell_e_total_s": e_total,
+         "cell_e_profile": e_profile,
          **line, **ok}, indent=1))
     print(smi)
     print(json.dumps(line))

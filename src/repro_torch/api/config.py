@@ -5,8 +5,10 @@
   ``dataclasses.replace`` calls down the config tree. Every leaf field is
   addressable, values are coerced to the declared field type, and unknown
   keys are hard ``ConfigError``s.
-* **Named presets** — ``smoke`` (the tiny one-device cell) and ``prod``
-  (the fused, survival-pruned training cell).
+* **Named presets** — ``smoke`` (the tiny one-device cell),
+  ``paper_cifar`` (the paper's single-output classification cell, with
+  the ``cls`` source) and ``prod`` (the fused, survival-pruned training
+  cell).
 
 The lossless dict/json serialization of a ``RunConfig`` waits for the
 checkpoint slice.
@@ -164,6 +166,18 @@ def _smoke(model: ModelConfig) -> RunConfig:
         optim=OptimConfig(name="adamw", lr=1e-3, weight_decay=0.0),
         imp=ISConfig(enabled=True, presample_ratio=3, tau_th=1.2),
         steps=20, remat=False)
+
+
+@register_preset("paper_cifar",
+                 "the paper's single-output classification cell "
+                 "(CPU-scale; pair with the SyntheticCLS source)")
+def _paper_cifar(model: ModelConfig) -> RunConfig:
+    return RunConfig(
+        model=model,
+        shape=ShapeConfig("cls", seq_len=16, global_batch=16, kind="train"),
+        optim=OptimConfig(name="adamw", lr=2e-3, weight_decay=0.0),
+        imp=ISConfig(enabled=True, presample_ratio=3, tau_th=1.3),
+        steps=120, remat=False)
 
 
 @register_preset("prod", "pod-scale training cell: train_4k shape, adamw, "

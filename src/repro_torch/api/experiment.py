@@ -7,6 +7,9 @@ optimizer together from one ``RunConfig`` and runs the ``TrainLoop``:
     state, history = repro_torch.train("llama3.2-3b", preset="prod",
                                        overrides={"steps": 3})
     loss_ps, scores = repro_torch.score("llama3.2-3b", preset="prod")
+    # Algorithm 1 inside the step, the τ gate switching IS on:
+    state, history = repro_torch.train("lm-tiny", preset="paper_cifar",
+                                       source="cls")
 
 Everything runs on a CUDA device unless the caller passes ``device="cpu"``
 (as the CPU tests do); with no GPU present the default raises. Meshes,
@@ -23,7 +26,8 @@ from repro_torch.api.config import (ConfigError, apply_overrides, build_run,
                                     get_preset, parse_cli, truthy)
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.core.is_train import StepSpec, build_step, train_state_init
-from repro_torch.data.pipeline import DataPlane, PipelineState, SyntheticLM
+from repro_torch.data.pipeline import (DataPlane, PipelineState,
+                                       SyntheticCLS, SyntheticLM)
 from repro_torch.models.lm import LM
 from repro_torch.optim.api import get_optimizer
 from repro_torch.sampler.schemes import make_sampler
@@ -42,14 +46,18 @@ def resolve_device(device=None) -> torch.device:
 
 
 def _make_source(run: RunConfig, kind):
-    """"lm" builds the synthetic LM source; source objects pass through."""
+    """"lm"/"cls" build the synthetic sources from the run config; source
+    objects pass through."""
     if kind is None or kind == "lm":
         return SyntheticLM(run.model.vocab_size, run.shape.seq_len,
                            seed=run.seed)
+    if kind == "cls":
+        return SyntheticCLS(run.model.vocab_size, run.shape.seq_len,
+                            seed=run.seed)
     if hasattr(kind, "gather"):
         return kind
-    raise ConfigError(f"unknown data source {kind!r} (expected 'lm' or a "
-                      f"source object)")
+    raise ConfigError(f"unknown data source {kind!r} (expected 'lm', 'cls', "
+                      f"or a source object)")
 
 
 def _resolve_run(cfg, preset=None, overrides=None) -> RunConfig:
@@ -69,7 +77,8 @@ def _resolve_run(cfg, preset=None, overrides=None) -> RunConfig:
 class Experiment:
     """Model + source + sampler + engine + loop, from one config."""
 
-    def __init__(self, run_cfg, source=None, device=None, hooks=()):
+    def __init__(self, run_cfg, source=None, device=None, gate=None,
+                 hooks=()):
         if run_cfg.ckpt_dir:
             raise ConfigError("checkpointing is not ported yet (ckpt_dir "
                               "must be unset)")
@@ -85,17 +94,21 @@ class Experiment:
         self.engine = ScoreEngine(self.lm, run_cfg)
         self.sampler.bind_engine(self.engine)
         self.default_hooks = list(hooks)
-        # the score-memory and host-presample schemes hand the step b
-        # host-chosen rows + the τ flag; the on-device presample step kind
-        # (not ported) would score and resample inside the step
-        spec = StepSpec("host" if self.sampler.uses_score_step
-                        else "presample")
+        # presample runs the paper's Algorithm 1 inside the step; the
+        # score-memory and host/fused presample schemes hand the step b
+        # host-chosen rows + the τ flag
+        if self.sampler.uses_score_step:
+            spec = StepSpec("host")
+        else:
+            spec = StepSpec("presample", gate=gate or (
+                "cond" if run_cfg.imp.enabled else "never"))
+        self.step_is_flagged = spec.flagged
         self.step_fn = build_step(self.lm, run_cfg, self.opt, spec)
 
     @classmethod
     def from_flags(cls, argv=None, **kw):
         """Build an ``Experiment`` from CLI flags: reserved ``--arch <id>``
-        (required), ``--preset <name>``, ``--smoke``, ``--source lm`` and
+        (required), ``--preset <name>``, ``--smoke``, ``--source lm|cls`` and
         ``--device <torch device>``; every other flag is a dotted
         ``RunConfig`` path (``--steps 3``, ``--shape.seq_len=1024``)."""
         import sys
@@ -119,28 +132,37 @@ class Experiment:
     def resume_or_init(self):
         """(train state, pipeline state, first step): a fresh start, as
         checkpoint resume is not ported yet."""
-        return train_state_init(self.lm, self.opt), PipelineState(), 0
+        return (train_state_init(self.lm, self.opt, self.run.seed),
+                PipelineState(), 0)
 
-    def fit(self, steps=None, log_every=None, hooks=()):
+    def fit(self, steps=None, log_every=None, callback=None, hooks=()):
         """Train via the loop. Returns ``(state, history)``."""
-        from repro_torch.api.hooks import LoggingHook, MetricsHistoryHook
+        from repro_torch.api.hooks import (CallbackHook, LoggingHook,
+                                           MetricsHistoryHook)
         from repro_torch.api.loop import TrainLoop
         hs = [MetricsHistoryHook()]
         if log_every:
             hs.append(LoggingHook(every=log_every))
         hs += list(self.default_hooks) + list(hooks)
+        if callback is not None:
+            hs.append(CallbackHook(callback))
         return TrainLoop(self, hs).run(steps)
 
 
 def train(cfg="lm-tiny", *, preset=None, overrides=None, source=None,
-          device=None, steps=None, hooks=(), log_every=None):
+          device=None, gate=None, steps=None, callback=None, hooks=(),
+          log_every=None):
     """Train in one call. ``cfg`` is an arch id, a ``ModelConfig`` or a
     ``RunConfig``; ``preset`` names a registered cell (``smoke``,
-    ``prod``); ``overrides`` is a dotted-path dict. Returns ``(state,
-    history)``."""
+    ``paper_cifar``, ``prod``); ``overrides`` is a dotted-path dict;
+    ``source`` is ``"lm"``, ``"cls"`` or a source object; ``gate`` forces
+    the presample step's branch (``"always"``, ``"never"``; default τ-gated
+    when IS is enabled); ``callback(step, metrics)`` is called after each
+    step. Returns ``(state, history)``."""
     run = _resolve_run(cfg, preset, overrides)
-    exp = Experiment(run, source=source, device=device, hooks=hooks)
-    return exp.fit(steps=steps, log_every=log_every)
+    exp = Experiment(run, source=source, device=device, gate=gate,
+                     hooks=hooks)
+    return exp.fit(steps=steps, callback=callback, log_every=log_every)
 
 
 def score(cfg="lm-tiny", *, params=None, batch=None, gids=None, source=None,

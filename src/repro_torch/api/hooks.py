@@ -48,3 +48,14 @@ class LoggingHook(Hook):
         self.printer(f"step {step:5d} loss {metrics.get('loss', float('nan')):.4f}"
                      f" tau {tau:.2f} is {active:.0f} "
                      f"dt {metrics.get('dt', 0.0):.2f}s", flush=True)
+
+
+class CallbackHook(Hook):
+    """Adapts a ``callback(step, metrics)`` function onto the hook
+    interface (``train(..., callback=...)``)."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    def on_step_end(self, loop, step, metrics):
+        self.fn(step, metrics)

@@ -75,7 +75,11 @@ class TrainLoop:
                     pstate_next, i + 1,
                     params=state["params"] if overlap else None)
             with obs.span("loop.dispatch"):
-                state, metrics = exp.step_fn(state, batch, plan["is_flag"])
+                if exp.step_is_flagged:
+                    state, metrics = exp.step_fn(state, batch,
+                                                 plan["is_flag"])
+                else:
+                    state, metrics = exp.step_fn(state, batch)
             self.state = state
             self.drain_feedback()
             scores = metrics.pop("sample_scores")

@@ -2,7 +2,12 @@
 torch tensors (``repro.core.importance``).
 
 * ``normalize_scores`` — ĝᵢ → gᵢ = ĝᵢ / Σĝⱼ (Algorithm 1, line 7).
-* ``tau_inverse`` / ``tau`` — eq. 26: 1/τ = sqrt(1 − ‖g−u‖₂² / Σgᵢ²).
+* ``tau_inverse`` / ``tau`` — eq. 26: 1/τ = sqrt(1 − ‖g−u‖₂² / Σgᵢ²); IS
+  pays off when B + 3b < 3τb (``speedup_guaranteed``, §3.3).
+* ``variance_reduction`` — eq. 23: (mean ‖G‖)²·B·‖g − u‖₂².
+* ``sample_with_replacement`` / ``unbiased_weights`` — draw b of B ∝ g
+  (line 8) and weight them wᵢ = 1/(B·gᵢ) (eq. 2-5), which keeps the
+  weighted gradient unbiased for the uniform-expectation gradient.
 * the τ-EMA controller (Algorithm 1, line 17).
 """
 from __future__ import annotations
@@ -27,6 +32,42 @@ def tau_inverse(g):
 
 def tau(g):
     return 1.0 / torch.clamp(tau_inverse(g), min=1e-6)
+
+
+def variance_reduction(gnorms):
+    """eq. 23 from raw (unnormalised) per-sample gradient-norm estimates."""
+    B = gnorms.shape[0]
+    g = normalize_scores(gnorms)
+    return gnorms.float().mean() ** 2 * B * (g - 1.0 / B).square().sum()
+
+
+def unbiased_weights(g, idx):
+    """wᵢ = 1/(B·gᵢ) for the sampled indices (eq. 2-5)."""
+    return 1.0 / (g.shape[0] * torch.clamp(g[idx], min=1e-20))
+
+
+def sample_with_replacement(generator, g, b):
+    """Draw b indices ∝ g with replacement (Algorithm 1, line 8), from
+    ``generator`` (a ``torch.Generator`` on g's device): the distribution
+    of the reference's ``categorical`` over log(max(g, 1e-20)), not its
+    bits."""
+    return torch.multinomial(torch.clamp(g.float(), min=1e-20), b,
+                             replacement=True, generator=generator)
+
+
+def speedup_guaranteed(tau_val, B, b):
+    """§3.3: guaranteed speedup iff B + 3b < 3·τ·b."""
+    return B + 3 * b < 3 * tau_val * b
+
+
+def max_variance_reduction(B, b):
+    """§3.3: upper bound 1/b² − 1/B² on achievable variance reduction."""
+    return 1.0 / b ** 2 - 1.0 / B ** 2
+
+
+def max_speedup(B, b):
+    """§3.3: max speedup (B+3b)/(3B) assuming backward = 2× forward."""
+    return (B + 3 * b) / (3 * B)
 
 
 class ISControllerState(NamedTuple):

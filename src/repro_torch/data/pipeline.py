@@ -4,8 +4,9 @@ parts the ported slices run).
 * ``PipelineState`` — the (epoch, cursor) iterator state; under the
   selection plane it is also the PLAN CURSOR.
 * ``DataSource`` — the index math every source shares; ``SyntheticLM`` —
-  seeded on-the-fly token streams with structured difficulty. Sources are
-  numpy, so their batches are bitwise the reference's.
+  seeded on-the-fly token streams with structured difficulty;
+  ``SyntheticCLS`` — the paper's single-output classification setting.
+  Sources are numpy, so their batches are bitwise the reference's.
 * ``DataPlane`` — a depth-1 data plane that drives the sampler's two-phase
   ``begin``/``finish`` synchronously on the calling thread. Schemes whose
   plans read the score memory (``history``, ``selective``) and the other
@@ -98,6 +99,51 @@ class SyntheticLM(DataSource):
             ex = self._example(rng, idx)
             toks[j] = np.concatenate([ex, ex[:1]])
         return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+class SyntheticCLS(DataSource):
+    """Sequence-classification data in the paper's single-output setting:
+    the loss sits on the LAST position only (labels elsewhere are -1), so
+    the per-sample score is exactly the paper's ‖softmax(z) − 1_y‖₂.
+
+    Each example: a class-template token sequence with per-token
+    corruption; the corruption rate varies per example (0 → trivially
+    easy, 0.55 → hard), the heterogeneous difficulty IS exploits.
+    """
+
+    def __init__(self, vocab_size, seq_len, n_classes=8, n_examples=1 << 14,
+                 seed=0):
+        super().__init__(n_examples)
+        self.vocab = int(vocab_size)
+        self.seq = int(seq_len)
+        self.n_classes = n_classes
+        self.seed = seed
+        r = np.random.default_rng(np.random.SeedSequence([seed, 555]))
+        # class templates live in token range [n_classes, vocab)
+        self.templates = r.integers(n_classes, self.vocab,
+                                    size=(n_classes, seq_len))
+
+    def _example(self, rng, idx):
+        c = int(rng.integers(0, self.n_classes))
+        corrupt = float(rng.uniform(0.0, 0.55)) * (idx % 3 != 0)  # 1/3 clean
+        toks = self.templates[c].copy()
+        mask = rng.uniform(size=self.seq) < corrupt
+        toks[mask] = rng.integers(self.n_classes, self.vocab,
+                                  size=int(mask.sum()))
+        labels = np.full((self.seq,), -1, np.int64)
+        labels[-1] = c                          # single-output CE (paper)
+        return toks.astype(np.int32), labels.astype(np.int32)
+
+    def gather(self, indices, epoch: int = 0):
+        indices = np.asarray(indices, np.int64)
+        toks = np.empty((len(indices), self.seq), np.int32)
+        labels = np.empty((len(indices), self.seq), np.int32)
+        for j, idx in enumerate(indices):
+            idx = int(idx) % self.n
+            rng = np.random.default_rng(
+                np.random.SeedSequence([self.seed, epoch, idx]))
+            toks[j], labels[j] = self._example(rng, idx)
+        return {"tokens": toks, "labels": labels}
 
 
 def to_device(batch: dict, device) -> dict:

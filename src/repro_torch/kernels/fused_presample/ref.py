@@ -1,17 +1,27 @@
-"""Plain version of the survival-pruned pool pass.
+"""Plain versions of the presample pool ops.
 
-The identical conservative recurrence with f64 bound math and per-chunk
-masked sums from the direct ``ce_score_block_ref`` formulation, which
-reproduces the kernel's block-granular freeze (rows in all-dead row blocks
-stop accumulating). Scores and alive masks agree with ``ops`` to the
-kernel-vs-plain tolerance.
+* ``pruned_pool_score_ref`` — the identical conservative recurrence with
+  f64 bound math and per-chunk masked sums from the direct
+  ``ce_score_block_ref`` formulation, which reproduces the kernel's
+  block-granular freeze (rows in all-dead row blocks stop accumulating).
+  Scores and alive masks agree with ``ops`` to the kernel-vs-plain
+  tolerance.
+* ``select_pool_ref`` / ``fused_presample_ref`` — the UNFUSED
+  ``ce_score_ref`` → masked row sum → race keys → stable ascending sort →
+  ``index_select`` composition. The keys use the shared
+  ``pool_keys_math`` (the uint32 hash is bit-identical by definition);
+  the bottom-(k+1) is a stable sort, not the op's int64 top-k. Indices,
+  gathered rows and weights equal the op's on the same scores; scores
+  agree to the K1-vs-plain tolerance.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.kernels.ce_score.ref import ce_score_block_ref
+from repro_torch.kernels.ce_score.ref import ce_score_block_ref, ce_score_ref
+from repro_torch.kernels.fused_presample.fused_presample import \
+    pool_keys_math
 from repro_torch.kernels.fused_presample.ops import _block_defaults
 from repro_torch.kernels.fused_presample.race import pool_hash
 
@@ -71,3 +81,38 @@ def pruned_pool_score_ref(logits, labels, ctx, *, k, block_b=None,
                       float(nc * nb * nt_chunk), 0.0], np.float32)
     return (scores, alive.astype(np.float32),
             (cerun / ntok).astype(np.float32), stats)
+
+
+def select_pool_ref(scores, ctx, *, k):
+    """Plain version of ``ops.select_pool`` (same return contract):
+    the same key math, selection by a stable ascending sort."""
+    B = scores.shape[0]
+    scores = scores.to(torch.float32)
+    total = torch.clamp(scores.sum(), min=1e-20)
+    g = scores / total
+    if k >= B:
+        return (torch.arange(B, dtype=torch.int64, device=scores.device), g,
+                torch.full((B,), 1.0 / max(B, 1), dtype=torch.float32,
+                           device=scores.device),
+                torch.tensor(float("inf"), device=scores.device))
+    ids = torch.arange(B, dtype=torch.int64, device=scores.device)
+    r = pool_keys_math(scores, ids, ctx, 1.0 / total)
+    order = torch.sort(r, stable=True).indices   # ties → low index
+    idx = order[:k]
+    thr = r[order[k]]
+    probs = g[idx]
+    pi = -torch.expm1(-probs * thr)
+    w = 1.0 / (B * torch.clamp(pi, min=1e-30))
+    return idx, probs, w, thr
+
+
+def fused_presample_ref(logits, labels, rows, ctx, *, k):
+    """Plain version of ``ops.fused_presample`` (same return contract)."""
+    mask = (labels >= 0).to(torch.float32)
+    _, g2 = ce_score_ref(logits.to(torch.float32),
+                         torch.clamp(labels, min=0).to(torch.int32))
+    s = (g2 * mask).sum(-1)
+    scores = torch.sqrt(torch.clamp(s, min=1e-20))
+    idx, _, w, _ = select_pool_ref(scores, ctx, k=k)
+    sel = {name: v.index_select(0, idx) for name, v in rows.items()}
+    return sel, idx, w, scores

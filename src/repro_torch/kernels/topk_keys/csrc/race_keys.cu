@@ -18,28 +18,22 @@
 // at 3.35 TB/s. The work is two fmix32 rounds and three transcendentals a
 // slot, a few percent of the card's rate. The design is one thread per slot
 // on a grid-stride loop with coalesced 4-byte loads, so HBM streams at width.
-// Numerics: uint32_t arithmetic makes the hash exact (bitwise the host's
-// selection.hash_uniform). The float tail uses the IEEE-rounded logf/expf
-// (no fast-math: __logf near u -> 1 loses the small keys that decide the
-// race), and __fmul_rn/__fadd_rn/__fdiv_rn keep every product, sum and
-// quotient a separately rounded operation, as the plain version computes it.
+// Numerics: the hash is race_hash.cuh's, shared with K3 (uint32_t
+// arithmetic, bitwise the host's selection.hash_uniform). The float tail
+// uses the IEEE-rounded logf/expf (no fast-math: __logf near u -> 1 loses
+// the small keys that decide the race), and __fmul_rn/__fadd_rn/__fdiv_rn
+// keep every product, sum and quotient a separately rounded operation, as
+// the plain version computes it.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "race_hash.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
-
-__device__ __forceinline__ uint32_t fmix32(uint32_t x) {
-  x ^= x >> 16;
-  x *= 0x85EBCA6Bu;
-  x ^= x >> 13;
-  x *= 0xC2B2AE35u;
-  x ^= x >> 16;
-  return x;
-}
 
 __global__ void __launch_bounds__(kThreads)
 race_keys_kernel(const float* __restrict__ scores,
@@ -55,11 +49,7 @@ race_keys_kernel(const float* __restrict__ scores,
       continue;
     }
     const uint32_t gid = (uint32_t)i * n_hosts + host_id;
-    uint32_t h = fmix32(gid * 0x9E3779B9u ^ ctx);
-    h = fmix32(h + 0x6A09E667u);
-    // (h >> 8) * 2^-24 is exact, so one rounding either way
-    const float u = __fadd_rn(__fmul_rn((float)(h >> 8), 5.9604644775390625e-8f),
-                              2.98023223876953125e-8f);
+    const float u = race_hash::uniform(gid, ctx);
     float sp = fill_pow;
     if (sn > 0.f) sp = expf(__fmul_rn(logf(fmaxf(scores[i], 1e-12f)), inv_t));
     const float p = __fadd_rn(__fmul_rn(sp, scale), lam_over_n);

@@ -17,7 +17,8 @@ from pathlib import Path
 import torch
 from torch import Tensor
 
-SOURCES = (Path(__file__).with_name("csrc") / "race_keys.cu",)
+_CSRC = Path(__file__).with_name("csrc")
+SOURCES = (_CSRC / "race_keys.cu", _CSRC / "race_hash.cuh")
 
 launches = 0
 

@@ -1,4 +1,4 @@
-"""Optimizers (``repro.optim.api``).
+"""Optimizers and lr schedules (``repro.optim.api``).
 
 Contract:
     opt = get_optimizer(OptimConfig, schedule_fn)
@@ -31,6 +31,72 @@ def constant_schedule(lr):
     return lambda step: torch.tensor(lr, dtype=torch.float32)
 
 
+def step_drop_schedule(lr, drops, factor=0.2):
+    """The paper's CIFAR schedule: lr divided at fixed update counts."""
+    def f(step):
+        mult = torch.ones((), dtype=torch.float32)
+        for d in drops:
+            if step >= d:
+                mult = mult * factor
+        return lr * mult
+    return f
+
+
+def warmup_cosine_schedule(lr, warmup, total):
+    """Linear warm-up over ``warmup`` steps, then a cosine to 0 at
+    ``total``."""
+    def f(step):
+        step = torch.tensor(float(step), dtype=torch.float32)
+        warm = step / max(warmup, 1)
+        prog = torch.clamp((step - warmup) / max(total - warmup, 1), 0.0, 1.0)
+        cos = 0.5 * (1.0 + torch.cos(torch.pi * prog))
+        return lr * torch.where(step < warmup, warm, cos)
+    return f
+
+
+def _clip_scale(cfg, gn):
+    """The global-norm clip's factor min(1, clip/‖g‖), or None unclipped."""
+    if cfg.grad_clip > 0:
+        return torch.clamp(cfg.grad_clip / torch.clamp(gn, min=1e-12),
+                           max=1.0)
+    return None
+
+
+def sgd(cfg, schedule=None):
+    """SGD with momentum (+ optional Nesterov) and the reference's weight
+    decay g + wd·master; f32 master copy and momentum."""
+    sched = schedule or constant_schedule(cfg.lr)
+
+    def init(params):
+        return {
+            "master": {n: p.detach().float().clone()
+                       for n, p in params.items()},
+            "mu": {n: torch.zeros(p.shape, dtype=torch.float32,
+                                  device=p.device)
+                   for n, p in params.items()},
+        }
+
+    @torch.no_grad()
+    def update(grads, state, params, step):
+        gn = _global_norm(grads)
+        lr = sched(step).to(gn.device)
+        scale = _clip_scale(cfg, gn)
+        for n, p in params.items():
+            g = grads[n].float()
+            if scale is not None:
+                g = g * scale
+            ms, mu = state["master"][n], state["mu"][n]
+            if cfg.weight_decay:
+                g = g + cfg.weight_decay * ms
+            mu.mul_(cfg.momentum).add_(g)
+            d = g + cfg.momentum * mu if cfg.nesterov else mu
+            ms.sub_(lr * d)
+            p.copy_(ms)
+        return params, state, {"grad_norm": gn, "lr": lr}
+
+    return Optimizer(init, update)
+
+
 def adamw(cfg, schedule=None):
     sched = schedule or constant_schedule(cfg.lr)
 
@@ -49,10 +115,7 @@ def adamw(cfg, schedule=None):
         gn = _global_norm(grads)
         dev = gn.device
         lr = sched(step).to(dev)
-        scale = None
-        if cfg.grad_clip > 0:
-            scale = torch.clamp(cfg.grad_clip / torch.clamp(gn, min=1e-12),
-                                max=1.0)
+        scale = _clip_scale(cfg, gn)
         t = torch.tensor(float(step) + 1.0, dtype=torch.float32, device=dev)
         c1 = 1.0 - torch.pow(cfg.b1, t)
         c2 = 1.0 - torch.pow(cfg.b2, t)
@@ -73,7 +136,8 @@ def adamw(cfg, schedule=None):
 
 
 def get_optimizer(cfg, schedule=None) -> Optimizer:
+    if cfg.name == "sgd":
+        return sgd(cfg, schedule)
     if cfg.name == "adamw":
         return adamw(cfg, schedule)
-    raise NotImplementedError(f"optimizer {cfg.name!r} is not ported yet "
-                              f"(have 'adamw')")
+    raise ValueError(cfg.name)

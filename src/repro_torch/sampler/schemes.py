@@ -18,8 +18,9 @@ Schemes:
 
 * ``uniform`` — sequential batches of b, plain SGD; still feeds scores
   into the store.
-* ``presample`` — Algorithm 1's data side for the on-device step kind
-  (plans of B = ratio·b candidates); that step kind is not ported yet.
+* ``presample`` — Algorithm 1's data side for the ``presample`` step
+  kind (plans of B = ratio·b candidates; scoring, the τ gate and the
+  resampling run inside the step).
 * ``presample_host`` — Algorithm 1 with the scoring pass on the
   ``ScoreEngine`` path and selection on the host (``HostPresampleSampler``).
 * ``presample_fused`` — the same with the candidate pool kept on the
@@ -182,8 +183,9 @@ class UniformSampler(Sampler):
 
 class PresampleSampler(Sampler):
     """Algorithm 1's data side: plans of B = ratio·b candidates; scoring,
-    τ gating and resampling belong to the on-device ``presample`` step
-    kind, which is not ported yet (``build_step`` raises for it)."""
+    τ gating and resampling belong to the ``presample`` step kind
+    (``core.is_train``), which feeds the B-vector of scores back (−1 for
+    candidates the step did not score)."""
 
     scheme = "presample"
     uses_score_step = False

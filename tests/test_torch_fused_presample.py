@@ -1,8 +1,20 @@
-"""The survival-pruned pool pass: the port's ``pruned_pool_score`` and its
-plain version against the JAX op (interpret mode) and the JAX oracle —
-equal alive masks, equal receipts, survivor scores to rtol 1e-5 — the
-race hash bitwise equal to the reference's, and, inside the port,
-survivors bitwise equal to the unpruned chunked pass."""
+"""The presample pool ops against the JAX package.
+
+* The survival-pruned pool pass: the port's ``pruned_pool_score`` and its
+  plain version against the JAX op (interpret mode) and the JAX oracle —
+  equal alive masks, equal receipts, survivor scores to rtol 1e-5 — the
+  race hash bitwise equal to the reference's, and, inside the port,
+  survivors bitwise equal to the unpruned chunked pass.
+* The fused presample op (K1 → K2 → K3 → bottom-(k+1) → HT weights →
+  gather) and its selection stage: the port's ``fused_presample`` /
+  ``select_pool`` (CPU route: the kernels' plain versions) and their
+  plain versions ``fused_presample_ref`` / ``select_pool_ref`` against
+  JAX's ops in interpret mode, on the reference tests' own cases.
+  Indices and gathered rows exact; on identical score bytes probs,
+  weights and threshold to 1e-6 relative (Σs is summed in another
+  order); scores to rtol 1e-5, atol 1e-6 (direct vs online logsumexp).
+  The kernels K2 and K3 are held against their plain versions on the
+  card in ``test_torch_pool_kernels.py`` and ``chip_smoke.py``."""
 import numpy as np
 import pytest
 
@@ -18,11 +30,14 @@ from repro.kernels.topk_keys.topk_keys import fmix32 as jax_fmix32  # noqa: E402
 from repro.sampler import selection as jax_selection  # noqa: E402
 from repro_torch.kernels.fused_presample import race  # noqa: E402
 from repro_torch.kernels.fused_presample.ops import (  # noqa: E402
-    pruned_pool_score)
+    fused_presample, pruned_pool_score, select_pool)
 from repro_torch.kernels.fused_presample.ref import (  # noqa: E402
-    pool_exponentials_ref, pruned_pool_score_ref)
+    fused_presample_ref, pool_exponentials_ref, pruned_pool_score_ref,
+    select_pool_ref)
+from repro_torch.sampler import selection  # noqa: E402
 
 RTOL = 1e-5
+SEL_RTOL = 1e-6   # probs, weights, threshold on identical score bytes
 
 
 def _pool(B, T, V, seed, pad_frac=0.1, spread=True):
@@ -113,3 +128,103 @@ def test_survivors_bitwise_equal_unpruned_chunked_pass(B, T, V, k, kw):
     assert torch.equal(loss[live], loss0[live])
     # killed rows carry an understatement of their final score
     assert bool((s[~live] <= s0[~live]).all())
+
+
+# ---------------------------------------------------------------------------
+# the fused presample op and its selection stage
+# ---------------------------------------------------------------------------
+def _fused_pool(rng, B, T, V, frac_masked=0.2):
+    """The reference test's pool: logits, labels (20 % masked), rows."""
+    logits = rng.normal(size=(B, T, V)).astype(np.float32)
+    labels = rng.integers(0, V, size=(B, T))
+    labels[rng.random(size=(B, T)) < frac_masked] = -1
+    rows = {"tokens": rng.integers(0, V, size=(B, T)).astype(np.int32),
+            "labels": labels.astype(np.int32)}
+    return logits, labels.astype(np.int32), rows
+
+
+@pytest.mark.parametrize("B,T,V,k", [
+    (24, 8, 64, 8),       # aligned-ish small case
+    (37, 13, 97, 8),      # B % block_b != 0 AND V % block_v != 0
+    (130, 7, 50, 48),     # B > one row-block with a ragged tail
+])
+def test_fused_presample_matches_reference(B, T, V, k):
+    rng = np.random.default_rng(B + k)
+    z, y, rows = _fused_pool(rng, B, T, V)
+    ctx = jax_selection.hash_context(123, 4211, 7)
+    sel_j, idx_j, w_j, s_j = jax_ops.fused_presample(
+        jnp.asarray(z), jnp.asarray(y),
+        {n: jnp.asarray(v) for n, v in rows.items()}, ctx, k=k, block_b=16,
+        block_v=32)
+    trows = {n: torch.from_numpy(v) for n, v in rows.items()}
+    zt, yt = torch.from_numpy(z), torch.from_numpy(y)
+    got = fused_presample(zt, yt, trows, ctx, k=k, block_b=16, block_v=32)
+    plain = fused_presample_ref(zt, yt, trows, ctx, k=k)
+    for sel, idx, w, s in (got, plain):
+        np.testing.assert_allclose(s.numpy(), np.asarray(s_j), rtol=RTOL,
+                                   atol=1e-6)
+        np.testing.assert_array_equal(idx.numpy(), np.asarray(idx_j))
+        for name in rows:
+            np.testing.assert_array_equal(sel[name].numpy(),
+                                          np.asarray(sel_j[name]))
+            np.testing.assert_array_equal(sel[name].numpy(),
+                                          rows[name][idx.numpy()])
+        # the weights are float functions of the scores, which differ
+        # from JAX's in the last ulps; here that stays within SEL_RTOL
+        np.testing.assert_allclose(w.numpy(), np.asarray(w_j), rtol=SEL_RTOL)
+    # on the same CPU tensors the op's plain route and the plain version
+    # agree exactly: the same K1/K2 math, top-k vs stable sort
+    np.testing.assert_array_equal(got[1].numpy(), plain[1].numpy())
+    np.testing.assert_array_equal(got[2].numpy(), plain[2].numpy())
+
+
+@pytest.mark.parametrize("B,k", [(64, 16), (100, 31), (1024, 256),
+                                 (16, 16)])
+def test_select_pool_matches_reference_on_identical_scores(B, k):
+    """Selection fed the same score bytes as JAX's op: equal indices, and
+    probs, weights and threshold to ``SEL_RTOL`` (Σs is summed in another
+    order)."""
+    rng = np.random.default_rng(3 + B)
+    scores = rng.uniform(0.01, 5.0, B).astype(np.float32)
+    ctx = jax_selection.hash_context(9, 4211, B)
+    want = jax_ops.select_pool(jnp.asarray(scores), ctx, k=k, block_t=32)
+    st = torch.from_numpy(scores)
+    for got in (select_pool(st, ctx, k=k), select_pool_ref(st, ctx, k=k)):
+        np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+        for g, w in zip(got[1:], want[1:]):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w),
+                                       rtol=SEL_RTOL, atol=0)
+
+
+@pytest.mark.parametrize("ctx", [1234, 0xFFFFFFFF])
+def test_select_pool_degenerate_k_equals_B(ctx):
+    scores = np.random.default_rng(0).uniform(0.1, 2.0, 12).astype(np.float32)
+    want = jax_ops.select_pool(jnp.asarray(scores), ctx, k=12)
+    for fn in (select_pool, select_pool_ref):
+        idx, g, w, thr = fn(torch.from_numpy(scores), ctx, k=12)
+        np.testing.assert_array_equal(idx.numpy(), np.arange(12))
+        np.testing.assert_array_equal(idx.numpy(), np.asarray(want[0]))
+        np.testing.assert_allclose(g.numpy(), np.asarray(want[1]),
+                                   rtol=SEL_RTOL)
+        np.testing.assert_array_equal(w.numpy(), np.asarray(want[2]))
+        assert float(thr) == float(want[3]) == np.inf
+
+
+def test_select_pool_candidate_set_matches_host_twin():
+    """f32 keys (the op) against the host's f64 race (what plans record),
+    in the port and in JAX: the selected SET agrees (the K6 f32-vs-f64
+    contract); pads (score −1) never win."""
+    rng = np.random.default_rng(11)
+    for step in range(20):
+        B, k = 96, 24
+        scores = rng.uniform(0.05, 4.0, B).astype(np.float32)
+        ctx = jax_selection.hash_context(5, 4211, step)
+        idx, _, _, _ = select_pool(torch.from_numpy(scores), ctx, k=k)
+        host, _, _, _ = selection.presample_race_select(scores, k, ctx=ctx)
+        jhost, _, _, _ = jax_selection.presample_race_select(scores, k,
+                                                             ctx=ctx)
+        assert set(idx.tolist()) == set(host.tolist()) == set(jhost.tolist())
+    padded = np.concatenate([scores[:90], -np.ones(6, np.float32)])
+    idx, _, _, _ = select_pool(torch.from_numpy(padded), 77, k=k)
+    assert int(idx.max()) < 90
+

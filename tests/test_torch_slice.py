@@ -125,7 +125,14 @@ def test_import_boundary():
                 "repro_torch.kernels.topk_keys.ops",
                 "repro_torch.kernels.topk_keys.topk_keys",
                 "repro_torch.distributed.collectives",
-                "repro_torch.sampler.store"):
+                "repro_torch.sampler.store",
+                "repro_torch.kernels.fused_presample.ops",
+                "repro_torch.kernels.fused_presample.ref",
+                "repro_torch.kernels.fused_presample.fused_presample",
+                "repro_torch.core.is_train",
+                "repro_torch.core.importance",
+                "repro_torch.optim.api",
+                "repro_torch.api.hooks"):
         assert mod in out["modules"], mod
     assert len(out["modules"]) >= 40
     # and statically, so a lazy import inside a function is caught too
@@ -146,6 +153,8 @@ def test_entry_points_default_to_the_gpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         repro_torch.train("lm-tiny", preset="prod", overrides=OVERRIDES)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        repro_torch.train("lm-tiny", preset="smoke")
     from repro_torch.launch import train as launcher
     with pytest.raises(RuntimeError, match="CUDA"):
         launcher.main(["--arch", "lm-tiny", "--preset", "prod",
@@ -171,9 +180,16 @@ def test_launcher_runs_on_cpu_when_asked(capsys):
 
 
 def test_unported_paths_raise():
-    """The on-device ``presample`` step kind is the one scheme route still
-    to be ported."""
+    """Every scheme route is ported (``imp.presample_impl="step"`` builds
+    the in-step ``presample`` kind); checkpoints and sharded scoring are
+    the routes still to be ported, and they raise."""
     run = build_run("lm-tiny", preset="prod",
                     overrides=dict(OVERRIDES, **{"imp.presample_impl": "step"}))
+    exp = Experiment(run, device="cpu")
+    assert exp.step_is_flagged is False
+    with pytest.raises(ValueError, match="not ported"):
+        Experiment(build_run("lm-tiny", preset="smoke",
+                             overrides={"ckpt_dir": "ckpt"}), device="cpu")
     with pytest.raises(NotImplementedError, match="not ported"):
-        Experiment(run, device="cpu")
+        repro_torch.score("lm-tiny", preset="smoke", mesh="pod",
+                          device="cpu")

@@ -120,11 +120,18 @@ def test_host_step_matches_reference(remat, is_flag, score_by, boost):
 
 
 def test_unported_step_kinds_raise():
+    """Every step kind and both optimizers are ported; what the reference
+    rejects, the port rejects as it does: an unknown kind or gate, an
+    unknown optimizer (``ValueError``, as ``repro.optim.api``)."""
     _, prun = _runs(False, "upper-bound", 0.0)
     lm = LM(prun.model, "cpu")
     opt = get_optimizer(prun.optim)
-    for kind in ("presample", "plain"):
-        with pytest.raises(NotImplementedError, match=kind):
-            build_step(lm, prun, opt, StepSpec(kind))
-    with pytest.raises(NotImplementedError):
-        get_optimizer(dataclasses.replace(prun.optim, name="sgd"))
+    for spec in (StepSpec("presample", gate="never"), StepSpec("plain")):
+        assert callable(build_step(lm, prun, opt, spec))
+    for bad in (dict(kind="sampled"), dict(kind="presample", gate="maybe")):
+        with pytest.raises(ValueError, match="unknown StepSpec"):
+            StepSpec(**bad)
+    assert callable(get_optimizer(dataclasses.replace(prun.optim,
+                                                      name="sgd")).update)
+    with pytest.raises(ValueError, match="lamb"):
+        get_optimizer(dataclasses.replace(prun.optim, name="lamb"))
