@@ -8,7 +8,12 @@ Phases, in order; each raises on failure, so the process exits non-zero:
 
 1. card     — the GPU's name and power limit (``nvidia-smi``), CUDA version;
 2. build    — compile every kernel from the sources in this checkout, one
-              ``nvcc`` per source, all started together;
+              ``nvcc`` per library, all started together, each under the
+              name its wrapper loads it by (the wrapper module's ``LIB*``),
+              registers and spills logged; the wgmma K5's ptxas report
+              shows no spills and its SASS holds HGMMA, UTMALDG and UTMASTG
+              (``cuobjdump -sass``). At the end the script checks that
+              every library the run loaded is one phase 2 built;
 3. K4       — ``ce_score_block`` against its plain version on the card:
               the slice's (12, 128, 128256) bf16 chunk view, a ragged
               shape, row blocks of 8 with dead blocks and label −1, f32;
@@ -20,7 +25,8 @@ Phases, in order; each raises on failure, so the process exits non-zero:
 6. slice    — ``repro_torch.train("llama3.2-3b", preset="prod", ...)``:
               full width and depth, the cuts printed, ``STEPS`` steps; the
               kernels' launch counts are zeroed just before and read just
-              after (K4: 8 a step). Steps 0, 1 and 3 are timed; step
+              after (K4: 8 a step; K5: 28 a step, all the wgmma kernel's).
+              Steps 0, 1 and 3 are timed; step
               ``PROFILED`` runs under ``torch.profiler``: where a steady
               step's device time goes, by kernel group and by name, and
               the device's idle share against step 1's unprofiled wall
@@ -55,7 +61,14 @@ Phases, in order; each raises on failure, so the process exits non-zero:
               prefill and a decode with q scaled ×6 (a peaked softmax,
               outputs of order 1); the oracle runs in f32 on the same
               inputs; each case within ``K5_TOL`` of every output and
-              within ``K5_ROW_REL`` of each query row's largest |output|;
+              within ``K5_ROW_REL`` of each query row's largest |output|.
+              Each case names its kernel and that kernel's count must move:
+              the wgmma kernel for bf16 hd-128 prefill shapes (cell C's,
+              also over the cache's prefix view, cells A/E's (12, 1024),
+              cell D's (8, 1024), ragged, a ragged q_offset over a cache,
+              windows, one at softmax scale 0.2), the mma.sync one for
+              decode, f32 and a bf16 hd-64 prefill; each case's output is
+              finite and a second launch gives the same bits;
 14. K1       — ``ce_score`` against its plain version on the card: cell
               D's (8·1024, 128256) logits in bf16 and f32, a ragged T over
               a strided view, labels at 0 and V − 1, extreme logits;
@@ -65,24 +78,41 @@ Phases, in order; each raises on failure, so the process exits non-zero:
               equal on both;
 16. cell C   — ``repro_torch.serve("llama3.2-3b", batch=8, prompt_len=4096,
               gen=64)`` at full width and depth (cuts printed); counts
-              zeroed just before and read just after (K5: 28 a step, 1792;
-              K1 0); prefill and decode times, peak memory; then prefill
-              and 4 decode steps again on the same tokens through K5 and
-              through the plain route: worst logit error against the
-              logits' scale, and greedy tokens equal in every row; the prefill and 4 decode steps under
+              zeroed just before and read just after (K5: 28 a step, 1792:
+              the wgmma kernel's 28 in the prefill, the mma.sync kernel's
+              1764 in decode; K1 0); prefill and decode times, peak
+              memory; then prefill and 4 decode steps again on the same
+              tokens through K5 and through the plain route: (a) K5 beside
+              the plain attention of each of the 140 calls (28 layers ×
+              prefill and 4 steps) on that call's own inputs, within
+              ``K5_TOL`` and ``K5_ROW_REL``; (b) the worst and the mean
+              |K5-route − plain-route| f32 logit (before the lm head's
+              rounding) at most twice the plain route's own with
+              ``online_attention``'s chunks at (1024, 512), and the worst
+              bf16 logit error under 0.05 of the logits' scale; (c) greedy
+              tokens equal in every row where the plain route's top two
+              bf16 logits differ by more than one ulp of the top one, and
+              one of those two where they do not (tie rows, the K5 route's
+              flips and the re-chunked plain route's logged); (d) the K5
+              route reproduces serve's tokens; the prefill and 4 decode steps under
               ``torch.profiler`` (device busy time, idle share, device ops
               and host-to-card copies a step; tables to
               ``chiprun_out/profile_serve_*.txt``);
 17. cell D   — ``repro_torch.score("llama3.2-3b", preset="prod", ...)``
-              under ``imp.score_impl="pallas"`` (K1 once, K5 28 times),
+              under ``imp.score_impl="pallas"`` (K1 once, K5 28 times, all
+              the wgmma kernel's),
               held against the same call under ``"fused"``;
-18. K5/K1 timing — K5 per launch at cell C's prefill and decode shapes,
-              K1 at cell D's, each beside its plain version, its bound and
-              (K5) ``scaled_dot_product_attention`` on the same inputs as a
-              yardstick that the port never calls. CUDA events time the
-              prefill and K1; the decode shape is timed by its device
-              activity under the profiler, since a launch there is shorter
-              than its dispatch.
+18. K5/K1 timing — K5 per launch at cell C's prefill, cell D's score
+              (8, 1024) and cells A/E's pool (12, 1024) (the wgmma kernel,
+              TFLOP/s, and the mma.sync kernel on the same values) and cell
+              C's decode (mma.sync), K1 at cell D's, each beside its plain
+              version, its bound and (K5) ``scaled_dot_product_attention``
+              on the same inputs as a yardstick that the port never calls,
+              also under each of its fused backends that runs (flash,
+              cuDNN, efficient), in turns over three rounds. CUDA events
+              time the prefill shapes and K1; the decode shape is timed by
+              its device activity under the profiler, since a launch there
+              is shorter than its dispatch.
 
 19. K2/K3     — ``row_score`` (K2) against its plain version on the card at
               cell E's pool (12, 1024), at ``prod``'s pool (768, 4096) and a
@@ -100,20 +130,25 @@ Phases, in order; each raises on failure, so the process exits non-zero:
 21. cell E   — ``repro_torch.train("llama3.2-3b", preset="prod", overrides=
               {"imp.presample_impl": "step", ...}, gate="always")``: full
               width and depth, pool 12, the cuts printed; counts zeroed just
-              before and read just after (K5: 28 a step; K1, K2, K3, K4: 0);
+              before and read just after (K5: 28 a step, the wgmma
+              kernel's; K1, K2, K3, K4: 0);
               per step the loss, τ, weights, wall time, peak memory (step
               ``PROFILED`` under ``torch.profiler``); then one
               ``fused_presample`` on a fresh pool's logits from the final
               params (K1, K2, K3 once each): scores against ``sample_stats``
               (the step's scoring route) to 1e-4, the candidate set equal to
-              the host's float64 race, the gathered rows the pool's;
+              the host's float64 race, the gathered rows the pool's; and,
+              measured without a gate, the same pool scored through the
+              plain attention: the scores' worst relative error against the
+              K5 route's and whether the race fed the same uniforms draws
+              the same candidates;
 22. K2/K3 timing — K2 at both shapes (inputs rotated through copies
               that exceed the L2 cache), K3 at B = 12 and 768 (device time
               under the profiler: a launch is shorter than its dispatch),
               ``select_pool``, ``fused_presample`` and its K1 stage at cell
               E's pool, each beside its plain version and its bound.
 
-Phase 6 also counts K5, which now runs cell A's forward-only pool scoring
+Phase 6 also counts K5, which runs cell A's forward-only pool scoring
 (28 launches a step).
 
 The second-to-last lines are the card line and the ``{"kernels": ...}``
@@ -123,6 +158,8 @@ around it: it never falls back to the CPU or to a plain version.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 import gc
 import json
 import math
@@ -183,20 +220,56 @@ def card():
 
 
 def build_all(kernels):
-    """One nvcc per kernel, all started together."""
+    """One nvcc per library, all started together: the libraries of every
+    kernel, under the names their wrappers load them by (each wrapper
+    module's ``LIB*`` beside its ``SOURCES*``), so no launch builds again."""
     from repro_torch.kernels import build
+    builds = [b for k in kernels for b in k["builds"]]
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(kernels)) as pool:
-        libs = list(pool.map(lambda k: build.build(k["name"], k["sources"]),
-                             kernels))
+    with ThreadPoolExecutor(len(builds)) as pool:
+        libs = list(pool.map(lambda nb: build.build(*nb), builds))
     dt = time.perf_counter() - t0
-    for k, so in zip(kernels, libs):
-        log(f"[build] {k['name']}: {so.relative_to(ROOT)}")
-        report = (build.BUILD_DIR / f"{k['name']}.log").read_text()
+    for (name, _), so in zip(builds, libs):
+        log(f"[build] {name}: {so.relative_to(ROOT)}")
+        report = (build.BUILD_DIR / f"{name}.log").read_text()
         for line in report.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build]   {line.strip()}")
     log(f"[build] dir {build.BUILD_DIR.relative_to(ROOT)}, {dt:.1f} s")
+    return dict(zip((n for n, _ in builds), libs))
+
+
+def check_built_once(libs):
+    """Every library a wrapper loaded during the run is the one phase 2
+    built under that name: no launch compiled a library again."""
+    from repro_torch.kernels import build
+    loaded = {n: Path(lib._name) for n, lib in build._loaded.items()}
+    assert all(libs.get(n) == path for n, path in loaded.items()), \
+        (loaded, libs)
+    log(f"[build] the run loaded {sorted(loaded)}, each the library phase 2 "
+        f"built; {sorted(set(libs) - set(loaded))} built and not loaded")
+    return sorted(loaded)
+
+
+def check_wgmma_build(libs):
+    """The wgmma K5 library: no spills in ptxas's report, and its SASS
+    holds wgmma (HGMMA) and TMA loads (UTMALDG) and stores (UTMASTG)."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attn import flash_attn as k5
+    so = libs[k5.LIB_WGMMA]
+    report = (build.BUILD_DIR / f"{k5.LIB_WGMMA}.log").read_text()
+    spills = [ln.strip() for ln in report.splitlines() if "spill" in ln]
+    regs = [ln.strip() for ln in report.splitlines() if "registers" in ln]
+    assert spills and all(" 0 bytes spill stores, 0 bytes spill loads" in ln
+                          for ln in spills), spills
+    cuobjdump = Path(build.nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(so)],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    counts = {op: sass.count(op) for op in ("HGMMA", "UTMALDG", "UTMASTG")}
+    assert all(counts.values()), counts
+    log(f"[build] {k5.LIB_WGMMA} SASS: {counts}; {regs}; {spills}")
+    return dict(sass=counts, ptxas=regs + spills)
 
 
 def _k4_inputs(B, T, V, dtype, gen, dead=(), pad_frac=0.0):
@@ -310,8 +383,8 @@ def check_lm_tiny():
 
 KERNEL_GROUPS = (  # first match wins; names as the profiler reports them
     ("K4 ce_score_block", ("ce_token_kernel", "row_sum_kernel")),
-    ("K5 flash_attention", ("flash_bf16_kernel", "flash_f32_kernel",
-                            "combine_kernel")),
+    ("K5 flash_attention", ("flash_fwd_wgmma_kernel", "flash_bf16_kernel",
+                            "flash_f32_kernel", "combine_kernel")),
     ("K1/K2/K3 ce_score, row_score, pool_keys", ("ce_score_kernel",
                                                  "row_score_kernel",
                                                  "pool_keys_kernel")),
@@ -367,26 +440,29 @@ def run_slice(out):
             log("[slice] " + json.dumps(row))
 
     hook = StepLog()
-    k4.launches = k5.launches = k6.launches = 0
+    k4.launches = k6.launches = 0
+    _k5_zero(k5)
     t0 = time.perf_counter()
     _, history = repro_torch.train("llama3.2-3b", preset="prod",
                                    overrides=overrides, hooks=[hook])
     torch.cuda.synchronize()
     launches, k5_launches = k4.launches, k5.launches
+    k5_by = dict(k5.launches_by_kernel)
     total = time.perf_counter() - t0
     assert len(history) == STEPS
     assert all(math.isfinite(h["loss"]) for h in history), history
     log(f"[slice] {STEPS} steps in {total:.1f} s (model build included); "
         f"K4 launches {launches} ({launches / STEPS:g} per step), K5 "
         f"{k5_launches} ({k5_launches / STEPS:g} per step, the pool's "
-        f"scoring forward), K6 {k6.launches} (not on this path)")
+        f"scoring forward; by kernel {k5_by}), K6 {k6.launches} (not on this "
+        f"path)")
     assert launches == 8 * STEPS, "K4 was not launched 8 times per step"
-    assert k5_launches == N_LAYERS * STEPS, \
-        "K5 was not launched once per layer of each pool's scoring forward"
+    assert k5_by == {"wgmma": N_LAYERS * STEPS, "mma": 0}, \
+        "the wgmma K5 was not launched once per layer of each pool's scoring"
     breakdown = step_breakdown(hook.prof, hook.rows, out)
     gc.collect()
     torch.cuda.empty_cache()
-    return launches, k5_launches, hook.rows, breakdown
+    return launches, k5_by, hook.rows, breakdown
 
 
 def _device_time(prof):
@@ -787,6 +863,12 @@ def time_k6(store):
 # ---------------------------------------------------------------------------
 # slice 3: serving and scoring, K5 and K1
 # ---------------------------------------------------------------------------
+def _k5_zero(k5):
+    """K5's counts, the total and each kernel's, set to 0."""
+    k5.launches = 0
+    k5.launches_by_kernel.update(wgmma=0, mma=0)
+
+
 def _k5_inputs(b, sq, skv, hq, hkv, hd, dtype, gen, slots=0, q_scale=1.0):
     """q (b, sq, hq, hd); k, v (b, skv, hkv, hd), as prefix views of a
     ``slots``-slot cache when ``slots`` > skv (how serving passes them)."""
@@ -816,53 +898,81 @@ def _row_rel_err(got, want):
 
 def check_k5(gen):
     """Phase 13. Returns the worst absolute and per-row relative errors
-    over the cases, and each case's."""
+    over the cases, and each case's. Each case names the kernel the
+    dispatch rule must send it to, and that kernel's count must move."""
+    from repro_torch.kernels.flash_attn import flash_attn as k5
     from repro_torch.kernels.flash_attn.ops import flash_attention
     P, cap = SERVE["prompt_len"], SERVE["prompt_len"] + SERVE["gen"]
     cases = [
-        # name, (b, sq, skv, hq, hkv, hd), dtype, window, q_offset, slots
-        (f"cell C prefill (8,{P}) over the {cap}-slot cache, bf16",
+        # name, kernel, (b, sq, skv, hq, hkv, hd), dtype, window, q_offset,
+        # slots[, q scale]
+        (f"cell C prefill (8,{P}) over the {cap}-slot cache, bf16", "wgmma",
          (8, P, cap, 24, 8, 128), torch.bfloat16, 0, 0, 0),
-        (f"cell C prefill (8,{P}), q x{Q_PEAK:g} (peaked), bf16",
+        (f"cell C prefill (8,{P}), q x{Q_PEAK:g} (peaked), bf16", "wgmma",
          (8, P, cap, 24, 8, 128), torch.bfloat16, 0, 0, 0, Q_PEAK),
-        ("ragged (3,333) 24/8x128 bf16", (3, 333, 333, 24, 8, 128),
-         torch.bfloat16, 0, 0, 0),
-        ("window 256 (2,600) 24/8x128 bf16", (2, 600, 600, 24, 8, 128),
-         torch.bfloat16, 256, 0, 0),
-        ("f32 (2,300) 24/8x128", (2, 300, 300, 24, 8, 128), torch.float32,
-         0, 0, 0),
-        ("f32 lm-tiny decode (2,1) 4/2x16 at 40", (2, 1, 41, 4, 2, 16),
+        (f"cell C prefill (8,{P}) over the cache's {P}-key prefix view (as "
+         "serve passes it), bf16", "wgmma", (8, P, P, 24, 8, 128),
+         torch.bfloat16, 0, 0, cap),
+        ("cells A/E pool (12,1024) 24/8x128 bf16", "wgmma",
+         (12, 1024, 1024, 24, 8, 128), torch.bfloat16, 0, 0, 0),
+        ("cell D score (8,1024) 24/8x128 bf16", "wgmma",
+         (8, 1024, 1024, 24, 8, 128), torch.bfloat16, 0, 0, 0),
+        ("ragged (3,333) 24/8x128 bf16", "wgmma",
+         (3, 333, 333, 24, 8, 128), torch.bfloat16, 0, 0, 0),
+        ("ragged (2,777) at offset 100 over a 1000-slot cache, bf16",
+         "wgmma", (2, 777, 877, 24, 8, 128), torch.bfloat16, 0, 100, 1000),
+        ("window 256 (2,600) 24/8x128 bf16", "wgmma",
+         (2, 600, 600, 24, 8, 128), torch.bfloat16, 256, 0, 0),
+        # rows whose first kv tile is wholly masked for them (window and
+        # offset) at a softmax scale other than hd^-0.5
+        ("window 64 (2,200) at offset 256 over a 512-slot cache, scale 0.2,"
+         " bf16", "wgmma", (2, 200, 456, 24, 8, 128), torch.bfloat16, 64,
+         256, 512, 1.0, 0.2),
+        ("ragged (2,77) 24/8x64 bf16 (the mma kernel's bf16 prefill)",
+         "mma", (2, 77, 77, 24, 8, 64), torch.bfloat16, 0, 0, 0),
+        ("f32 (2,300) 24/8x128", "mma", (2, 300, 300, 24, 8, 128),
+         torch.float32, 0, 0, 0),
+        ("f32 lm-tiny decode (2,1) 4/2x16 at 40", "mma", (2, 1, 41, 4, 2, 16),
          torch.float32, 0, 40, 64),
     ]
     for off in (P, P + 31, cap - 1):
         cases.append((f"cell C decode (8,1) at {off} over the cache, bf16",
-                      (8, 1, off + 1, 24, 8, 128), torch.bfloat16, 0, off,
-                      cap))
+                      "mma", (8, 1, off + 1, 24, 8, 128), torch.bfloat16, 0,
+                      off, cap))
     cases.append((f"cell C decode (8,1) at {P + 31}, q x{Q_PEAK:g} "
-                  "(peaked), bf16", (8, 1, P + 32, 24, 8, 128),
+                  "(peaked), bf16", "mma", (8, 1, P + 32, 24, 8, 128),
                   torch.bfloat16, 0, P + 31, cap, Q_PEAK))
     worst, worst_rel, per_case = 0.0, 0.0, {}
-    for name, shape, dtype, window, off, slots, *q_scale in cases:
-        q, k, v = _k5_inputs(*shape, dtype, gen, slots, *q_scale)
-        kw = dict(window=window, q_offset=off)
+    for name, kernel, shape, dtype, window, off, slots, *extra in cases:
+        q_scale = extra[0] if extra else 1.0      # [q scale[, softmax scale]]
+        scale = extra[1] if len(extra) > 1 else None
+        q, k, v = _k5_inputs(*shape, dtype, gen, slots, q_scale)
+        kw = dict(window=window, q_offset=off, scale=scale)
+        before = dict(k5.launches_by_kernel)
         got = flash_attention(q, k, v, **kw)
+        moved = {n: c - before[n] for n, c in k5.launches_by_kernel.items()}
+        assert moved == {n: int(n == kernel) for n in moved}, (name, moved)
+        # no atomics: a second launch on the same inputs gives the same bits
+        assert torch.equal(flash_attention(q, k, v, **kw), got), name
         want = _k5_plain(q.float(), k.float(), v.float(), **kw)
         torch.cuda.synchronize()
         tol, rel_tol = K5_TOL[dtype], K5_ROW_REL[dtype]
         err = float((got.float() - want).abs().max())
         rel = _row_rel_err(got, want)
-        log(f"[k5] {name}: max |kernel - plain| = {err:.3e} (rtol = atol "
-            f"{tol}); worst row error / row's max |output| = {rel:.3e} "
-            f"(<= {rel_tol})")
+        log(f"[k5] {name}: {kernel} kernel; max |kernel - plain| = {err:.3e} "
+            f"(rtol = atol {tol}); worst row error / row's max |output| = "
+            f"{rel:.3e} (<= {rel_tol})")
         torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol)
         assert rel <= rel_tol, (name, rel, rel_tol)
         worst, worst_rel = max(worst, err), max(worst_rel, rel)
-        per_case[name] = dict(max_abs_err=err, max_row_rel_err=rel)
+        assert torch.isfinite(got).all(), name
+        per_case[name] = dict(kernel=kernel, max_abs_err=err,
+                              max_row_rel_err=rel, bitwise_repeatable=True)
         del q, k, v, got, want
         torch.cuda.empty_cache()
     log("[k5] the plain version ran in f32 on the same inputs, two batch "
         "rows at a time (its f32 score matrix for all 8 rows of the "
-        "prefill is 13 GB)")
+        "prefill is 13 GB); each case's second launch gave the same bits")
     return worst, worst_rel, per_case
 
 
@@ -907,13 +1017,19 @@ def check_k1(gen):
     return worst
 
 
-def _teacher_forced(lm, tokens, prompts, steps, q_offset):
+def _teacher_forced(lm, tokens, prompts, steps, q_offset, f32_head=False):
     """Prefill ``prompts`` into fresh caches, then ``steps`` decode steps
     fed ``tokens[:, i]``; the last-position logits of each (f32). With
-    ``q_offset`` the steps take K5, else the plain attention paths."""
+    ``q_offset`` the steps take K5, else the plain attention paths. With
+    ``f32_head`` also the logits before the lm head's bf16 rounding: the
+    final norm's output times the head's weights, in f32."""
     b, P = prompts.shape
     caches = lm.caches(b, P + tokens.shape[1])
     dev = prompts.device
+    hidden = []
+    hook = lm.final_norm.register_forward_hook(
+        lambda mod, args, h: hidden.append(h[:, -1].float())) \
+        if f32_head else None
 
     def step(toks, start):
         if q_offset:
@@ -926,7 +1042,89 @@ def _teacher_forced(lm, tokens, prompts, steps, q_offset):
         out.append(step(prompts, 0)[0][:, -1].float())
         for i in range(steps):
             out.append(step(tokens[:, i:i + 1], P + i)[0][:, -1].float())
-    return out
+        if not f32_head:
+            return out
+        hook.remove()
+        w = (lm.embed.t() if lm.cfg.tie_embeddings else lm.lm_head).float()
+        return out, [h @ w for h in hidden]
+
+
+@contextlib.contextmanager
+def _swapped(module, name, wrap):
+    """``module.name`` replaced by ``wrap(module.name)`` inside the block."""
+    real = getattr(module, name)
+    setattr(module, name, wrap(real))
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+def _k5_beside(errs):
+    """A wrapper of the plain ``attention_op`` that also runs K5 on each
+    call's own q, k and v (the cache's prefix, q_offset from the query
+    positions), holds it within ``K5_TOL`` (bf16) of the plain output and
+    records (max |K5 - plain|, worst row error against the row's largest
+    |output|); the plain output goes on."""
+    from repro_torch.kernels.flash_attn.ops import flash_attention
+    tol = K5_TOL[torch.bfloat16]
+
+    def wrap(real):
+        def attention_op(q, k, v, q_pos, kv_pos, **kw):
+            o = real(q, k, v, q_pos, kv_pos, **kw)
+            off = int(q_pos[0, 0])
+            n = off + q.shape[1]
+            f = flash_attention(q, k[:, :n], v[:, :n], causal=True,
+                                q_offset=off, scale=kw.get("scale"))
+            torch.testing.assert_close(f.float(), o.float(), rtol=tol,
+                                       atol=tol)
+            errs.append((float((f.float() - o.float()).abs().max()),
+                         _row_rel_err(f, o.float())))
+            return o
+        return attention_op
+    return wrap
+
+
+def _bf16_ulp(x):
+    """The spacing of bf16 values at |x| (8 significant bits)."""
+    return 2.0 ** (math.floor(math.log2(abs(x))) - 7) if x else 2.0 ** -133
+
+
+def _token_check(fast, plain, again):
+    """Greedy tokens of the K5 route (``fast``) against the plain route's,
+    per (step, row): where the plain route's top two bf16 logits differ by
+    more than one bf16 ulp of the top logit, the K5 token must equal the
+    plain one; where they lie within one ulp (a tie at the logits'
+    precision), it must be one of those two. ``again`` is the plain route
+    re-chunked: its flips on the same rows are recorded beside the K5
+    route's. Returns the record; raises on a row that breaks the rule."""
+    ties, flips, again_flips, bad = [], [], [], []
+    for i, (f, p, a) in enumerate(zip(fast, plain, again)):
+        top2 = p.topk(2, dim=-1)
+        mine, ref = f.argmax(-1), a.argmax(-1)
+        for r in range(p.shape[0]):
+            hi, second = (float(x) for x in top2.values[r])
+            first = int(top2.indices[r, 0])
+            tie = hi - second <= _bf16_ulp(hi)
+            if tie:
+                ties.append((i, r))
+            m = int(mine[r])
+            if m != first:
+                flips.append(dict(step=i, row=r, tie=tie,
+                                  margin=hi - float(p[r, m]),
+                                  ulp=_bf16_ulp(hi)))
+                if not (tie and m in top2.indices[r].tolist()):
+                    bad.append(flips[-1])
+            if int(ref[r]) != first:
+                again_flips.append(dict(step=i, row=r, tie=tie))
+    rec = dict(rows=sum(p.shape[0] for p in plain), tie_rows=len(ties),
+               ties=ties, k5_flips=flips,
+               k5_flips_at_ties=sum(f["tie"] for f in flips),
+               plain_rechunked_flips=again_flips,
+               plain_rechunked_flips_at_ties=sum(f["tie"]
+                                                 for f in again_flips))
+    assert not bad, (bad, rec)
+    return rec
 
 
 def check_serve_lm_tiny():
@@ -1030,26 +1228,34 @@ def run_cell_c(out):
     from repro_torch.configs import get_config
     from repro_torch.kernels.ce_score import ce_score as k1k4
     from repro_torch.kernels.flash_attn import flash_attn as k5
+    from repro_torch.models import attention
     from repro_torch.models.lm import LM
     log(f"[cell C] repro_torch.serve('llama3.2-3b', {SERVE})")
     log(f"[cell C] {SERVE_CUTS}")
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    k5.launches = k1k4.ce_score_launches = 0
+    _k5_zero(k5)
+    k1k4.ce_score_launches = 0
     t0 = time.perf_counter()
     served = repro_torch.serve("llama3.2-3b", **SERVE)
     total = time.perf_counter() - t0
     launches, k1 = k5.launches, k1k4.ce_score_launches
+    by_kernel = dict(k5.launches_by_kernel)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     b, gen = SERVE["batch"], SERVE["gen"]
     assert served["tokens"].shape == (b, gen)
     assert launches == N_LAYERS * gen, launches
+    # the prefill takes the wgmma kernel in each layer, the 63 decode
+    # steps the mma.sync/split kernel
+    assert by_kernel == {"wgmma": N_LAYERS, "mma": N_LAYERS * (gen - 1)}, \
+        by_kernel
     assert k1 == 0
     row = dict(prefill_s=served["prefill_s"], decode_s=served["decode_s"],
                decode_ms_per_step=served["decode_s"] / (gen - 1) * 1e3,
                tok_per_s=served["tok_per_s"], peak_gib=peak, total_s=total,
-               k5_launches=launches, k1_launches=k1)
+               k5_launches=launches, k5_launches_by_kernel=by_kernel,
+               k1_launches=k1)
     log("[cell C] " + json.dumps(row))
     # the plain route on the same tokens: prefill + 4 decode steps
     steps = 4
@@ -1060,8 +1266,20 @@ def run_cell_c(out):
     prompts = torch.randint(0, lm.cfg.vocab_size,
                             (b, SERVE["prompt_len"]), generator=g).cuda()
     toks = torch.from_numpy(served["tokens"]).cuda()
-    fast = _teacher_forced(lm, toks, prompts, steps, True)
-    plain = _teacher_forced(lm, toks, prompts, steps, False)
+    fast, fast32 = _teacher_forced(lm, toks, prompts, steps, True, True)
+    # the plain route, with K5 run beside each attention call on that
+    # call's own inputs: every layer of the prefill and of each step
+    layer = []
+    with _swapped(attention, "attention_op", _k5_beside(layer)):
+        plain, plain32 = _teacher_forced(lm, toks, prompts, steps, False,
+                                         True)
+    # the plain route again with its blockwise attention in other chunks
+    # (the same f32 sums in another order): the ruler of how far two
+    # equally valid routes drift apart over 28 bf16 layers
+    with _swapped(attention, "online_attention", lambda real:
+                  functools.partial(real, q_chunk=1024, kv_chunk=512)):
+        again, again32 = _teacher_forced(lm, toks, prompts, steps, False,
+                                         True)
     errs, scales, agree = [], [], []
     for i, (f, p) in enumerate(zip(fast, plain)):
         errs.append(float((f - p).abs().max()))
@@ -1071,14 +1289,48 @@ def run_cell_c(out):
         assert torch.equal(f.argmax(-1), toks[:, i]), i
     for e, s in zip(errs, scales):
         assert math.isfinite(e) and e < 0.05 * s, (errs, scales)
-    # greedy decoding through either route picks the same tokens
-    assert all(a == 1.0 for a in agree), agree
+    # K5 on the plain route's own activations, each layer and step, within
+    # the kernel's tolerances of the plain attention (no drift between)
+    assert len(layer) == N_LAYERS * (steps + 1), len(layer)
+    assert all(r <= K5_ROW_REL[torch.bfloat16] for _, r in layer), layer
+    # the logits before the lm head's rounding: the K5 route drifts from
+    # the plain route at most twice as far as the plain route drifts from
+    # itself in other chunks, in the worst and in the mean logit
+    def drift(xs, ys):
+        d = [(x - y).abs() for x, y in zip(xs, ys)]
+        return max(float(t.max()) for t in d), \
+            sum(float(t.mean()) for t in d) / len(d)
+    k5_drift, ref_drift = drift(fast32, plain32), drift(again32, plain32)
+    assert all(math.isfinite(a) and a <= 2 * b
+               for a, b in zip(k5_drift, ref_drift)), (k5_drift, ref_drift)
+    # Greedy tokens through either route are equal in every row where the
+    # plain route's top two bf16 logits differ by more than one ulp; where
+    # they lie within one, the drift above decides between them (for the
+    # plain route in other chunks too) and the K5 route's token is one of
+    # the two.
+    tokens = _token_check(fast, plain, again)
     cmp = dict(max_abs_err=max(errs), err_by_step=errs, logit_scale=scales,
-               greedy_agreement=agree)
+               greedy_agreement=agree, tokens=tokens,
+               f32_logit_drift_k5=k5_drift,
+               f32_logit_drift_plain_rechunked=ref_drift,
+               layer_max_abs_err=max(a for a, _ in layer),
+               layer_max_row_rel_err=max(r for _, r in layer))
     log(f"[cell C] K5 route vs plain route, prefill + {steps} decode steps "
         f"(teacher-forced on serve's tokens): " + json.dumps(cmp))
+    log(f"[cell C] (a) {len(layer)} K5 calls beside the plain attention: "
+        f"worst |K5 - plain| {cmp['layer_max_abs_err']:.3e} (<= "
+        f"{K5_TOL[torch.bfloat16]}), worst row error "
+        f"{cmp['layer_max_row_rel_err']:.3e} (<= "
+        f"{K5_ROW_REL[torch.bfloat16]}); (b) f32 logit drift worst/mean: K5 "
+        f"{k5_drift[0]:.4e}/{k5_drift[1]:.4e}, plain re-chunked "
+        f"{ref_drift[0]:.4e}/{ref_drift[1]:.4e} (K5 <= 2x); (c) "
+        f"{tokens['tie_rows']} tie rows of {tokens['rows']}, K5 flips "
+        f"{len(tokens['k5_flips'])} ({tokens['k5_flips_at_ties']} at ties), "
+        f"plain re-chunked flips {len(tokens['plain_rechunked_flips'])} "
+        f"({tokens['plain_rechunked_flips_at_ties']} at ties); (d) the K5 "
+        f"route reproduces serve's tokens")
     cmp["profile"] = profile_serve(lm, prompts, toks, row, out)
-    del lm, fast, plain, toks, prompts
+    del lm, fast, plain, again, fast32, plain32, again32, toks, prompts
     gc.collect()
     torch.cuda.empty_cache()
     return launches, row, cmp
@@ -1099,14 +1351,17 @@ def run_cell_d():
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    k5.launches = k1k4.ce_score_launches = k1k4.launches = 0
+    _k5_zero(k5)
+    k1k4.ce_score_launches = k1k4.launches = 0
     t0 = time.perf_counter()
     loss, sc = repro_torch.score("llama3.2-3b", preset="prod", overrides=dict(
         base, **{"imp.score_impl": "pallas"}))
     wall = time.perf_counter() - t0
     k1, k5n = k1k4.ce_score_launches, k5.launches
+    k5_by = dict(k5.launches_by_kernel)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     assert (k1, k5n, k1k4.launches) == (1, N_LAYERS, 0), (k1, k5n)
+    assert k5_by == {"wgmma": N_LAYERS, "mma": 0}, k5_by
     loss_f, sc_f = repro_torch.score("llama3.2-3b", preset="prod",
                                      overrides=dict(
                                          base, **{"imp.score_impl": "fused"}))
@@ -1114,7 +1369,8 @@ def run_cell_d():
     assert np.isfinite(loss).all() and np.isfinite(sc).all()
     np.testing.assert_allclose(loss, loss_f, rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(sc, sc_f, rtol=1e-4, atol=1e-4)
-    row = dict(k1_launches=k1, k5_launches=k5n, wall_s=wall, peak_gib=peak,
+    row = dict(k1_launches=k1, k5_launches=k5n,
+               k5_launches_by_kernel=k5_by, wall_s=wall, peak_gib=peak,
                loss=loss.tolist(), score=sc.tolist(),
                max_loss_diff_vs_fused=float(np.abs(loss - loss_f).max()),
                max_score_diff_vs_fused=float(np.abs(sc - sc_f).max()))
@@ -1163,59 +1419,134 @@ def _sdpa(q, k, v, causal):
     return lambda: f(qt, kt, vt, is_causal=causal)
 
 
+def _sdpa_backends(q, k, v, causal):
+    """``_sdpa`` under each of SDPA's fused backends that takes these
+    inputs on this card (``torch.nn.attention.sdpa_kernel``): name -> the
+    timed call. A backend that refuses them is logged and left out."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    f = _sdpa(q, k, v, causal)
+    runs = {}
+    for name, be in (("flash", SDPBackend.FLASH_ATTENTION),
+                     ("cudnn", SDPBackend.CUDNN_ATTENTION),
+                     ("efficient", SDPBackend.EFFICIENT_ATTENTION)):
+        def run(be=be):
+            with sdpa_kernel(be):
+                return f()
+        try:
+            run()
+            torch.cuda.synchronize()
+        except RuntimeError as e:
+            log(f"[timing] SDPA backend {name} does not run here: "
+                f"{str(e).splitlines()[0][:120]}")
+            continue
+        runs[name] = run
+    return runs
+
+
+def _off_tma(t):
+    """A copy of ``t`` whose base sits 4 bytes off a 16-byte boundary: TMA
+    refuses it, so the dispatch rule sends the call to the mma.sync kernel,
+    which takes it (both kernels timed on the same values)."""
+    buf = torch.empty(t.numel() + 2, dtype=t.dtype, device=t.device)
+    return buf[2:].view(t.shape).copy_(t)
+
+
 def time_k5(gen):
-    """Phase 18a: K5 per launch at cell C's prefill and mean decode shape."""
+    """Phase 18a: K5 per launch at cell C's prefill, cell D's score and
+    cells A/E's pool (the wgmma kernel, and the mma.sync kernel on the same
+    values beside it), and at cell C's mean decode shape (mma)."""
+    from repro_torch.kernels.flash_attn import flash_attn as k5
     from repro_torch.kernels.flash_attn.ops import flash_attention
     P, cap = SERVE["prompt_len"], SERVE["prompt_len"] + SERVE["gen"]
-    b, hq, hkv, hd = 8, 24, 8, 128
+    hq, hkv, hd = 24, 8, 128
     res = {}
-    # prefill: causal over the prompt, the cache's tail masked
-    q, k, v = _k5_inputs(b, P, cap, hq, hkv, hd, torch.bfloat16, gen)
-    ms = _time(lambda: flash_attention(q, k, v), 10)
-    plain_ms = _time(lambda: _k5_plain(q, k, v), 2)
-    lib_ms = _time(_sdpa(q, k[:, :P], v[:, :P], True), 10)
-    pairs = P * (P + 1) // 2                       # unmasked (q, k) pairs
-    n_ops = 4 * b * hq * hd * pairs
-    n_bytes = 2 * (2 * b * P * hq * hd + 2 * b * P * hkv * hd)
-    bound_ms, by = _bound(n_bytes, n_ops, BF16_FLOPS_PER_S)
-    res["prefill"] = dict(shape=f"q (8,{P},24,128), kv (8,{cap},8,128) bf16",
-                          ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                          bound_ms=bound_ms, bound_by=by,
-                          tflops=n_ops / (ms * 1e-3) / 1e12,
-                          timed_by="CUDA events")
-    del q, k, v
-    torch.cuda.empty_cache()
+    # causal; at cell C's prefill k and v are the prompt's prefix view of
+    # the cache, as serving passes them
+    for name, b, sq, slots in (("prefill", 8, P, cap),
+                               ("score (8, 1024)", 8, 1024, 0),
+                               ("pool (12, 1024)", 12, 1024, 0)):
+        q, k, v = _k5_inputs(b, sq, sq, hq, hkv, hd, torch.bfloat16, gen,
+                             slots=slots)
+        qm = _off_tma(q)
+        assert k5.plan(q, k, v) == "wgmma" and k5.plan(qm, k, v) == "mma"
+        runs = {"wgmma": lambda: flash_attention(q, k, v),
+                "mma": lambda: flash_attention(qm, k, v),
+                "sdpa": _sdpa(q, k, v, True),
+                **{f"sdpa {n}": f for n, f in
+                   _sdpa_backends(q, k, v, True).items()}}
+        # CUDA events around a loop (20 calls at the prefill, 50 at 1024
+        # keys), three rounds in turns, the order reversed every other
+        # round; each entry's median round
+        n_launch = 20 if sq > 2048 else 50
+        ev = {key: [] for key in runs}
+        for r in range(3):
+            for key in (list(runs) if r % 2 == 0 else list(runs)[::-1]):
+                ev[key].append(_time(runs[key], n_launch))
+        med = {key: sorted(ts)[1] for key, ts in ev.items()}
+        ms, mma_ms, lib_ms = med["wgmma"], med["mma"], med["sdpa"]
+        by_backend = {key[5:]: t for key, t in med.items()
+                      if key.startswith("sdpa ")}
+        plain_ms = _time(lambda: _k5_plain(q, k, v), 2)
+        pairs = sq * (sq + 1) // 2                 # unmasked (q, k) pairs
+        n_ops = 4 * b * hq * hd * pairs
+        n_bytes = 2 * (2 * b * sq * hq * hd + 2 * b * sq * hkv * hd)
+        bound_ms, by = _bound(n_bytes, n_ops, BF16_FLOPS_PER_S)
+        res[name] = dict(
+            shape=f"q ({b},{sq},24,128), kv ({b},{sq},8,128)"
+                  + (f" of a {slots}-slot cache" if slots else "")
+                  + " bf16, causal",
+            kernel="wgmma", ms=ms, mma_ms=mma_ms, rounds_ms=ev,
+            plain_ms=plain_ms, library_ms=lib_ms,
+            library_ms_by_backend=by_backend, bound_ms=bound_ms, bound_by=by,
+            tflops=n_ops / (ms * 1e-3) / 1e12,
+            sdpa_tflops={n: n_ops / (t * 1e-3) / 1e12
+                         for n, t in by_backend.items()},
+            timed_by=f"CUDA events, the median of 3 rounds of {n_launch} "
+                     "calls, in turns")
+        del q, qm, k, v, runs
+        torch.cuda.empty_cache()
     # decode: one query at the cache's mean fill, over the cache prefix.
     # A launch takes less device time than the host needs to issue it, so
     # CUDA events around a loop of them time the host: the kernel, its
     # plain version and the library call are timed by their device
     # activity under the profiler (the loop's event time kept beside)
     off = P + SERVE["gen"] // 2 - 1
-    q, k, v = _k5_inputs(b, 1, off + 1, hq, hkv, hd, torch.bfloat16, gen,
+    q, k, v = _k5_inputs(8, 1, off + 1, hq, hkv, hd, torch.bfloat16, gen,
                          slots=cap)
+    assert k5.plan(q, k, v) == "mma"
     sdpa = _sdpa(q, k, v, False)
     ms = _device_ms(lambda: flash_attention(q, k, v, q_offset=off), 50)
     plain_ms = _device_ms(lambda: _k5_plain(q, k, v, rows=8, q_offset=off),
                           10)
     lib_ms = _device_ms(sdpa, 50)
     loop_ms = _time(lambda: flash_attention(q, k, v, q_offset=off), 100)
-    n_ops = 4 * b * hq * hd * (off + 1)
-    n_bytes = 2 * (2 * b * hq * hd + 2 * b * (off + 1) * hkv * hd)
+    n_ops = 4 * 8 * hq * hd * (off + 1)
+    n_bytes = 2 * (2 * 8 * hq * hd + 2 * 8 * (off + 1) * hkv * hd)
     bound_ms, by = _bound(n_bytes, n_ops, BF16_FLOPS_PER_S)
     res["decode"] = dict(shape=f"q (8,1,24,128) at {off}, kv (8,{off + 1},"
                                f"8,128) of a {cap}-slot cache, bf16",
-                         ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                         bound_ms=bound_ms, bound_by=by,
+                         kernel="mma", ms=ms, plain_ms=plain_ms,
+                         library_ms=lib_ms, bound_ms=bound_ms, bound_by=by,
                          tb_per_s=n_bytes / (ms * 1e-3) / 1e12,
                          timed_by="device activity (torch.profiler)",
                          event_loop_ms=loop_ms)
     del q, k, v, sdpa
     torch.cuda.empty_cache()
     for name, r in res.items():
-        log(f"[timing] K5 {name} {r['shape']}: {r['ms']:.4f} ms/launch, "
-            f"plain {r['plain_ms']:.4f} ms, scaled_dot_product_attention "
-            f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-            f"({r['bound_by']}); timed by {r['timed_by']}"
+        extra = ""
+        if "tflops" in r:
+            extra = (f"; {r['tflops']:.1f} TFLOP/s (rounds "
+                     f"{[round(t, 4) for t in r['rounds_ms']['wgmma']]}); "
+                     f"the mma kernel on the same values {r['mma_ms']:.4f} "
+                     f"ms; SDPA by backend "
+                     + ", ".join(f"{n} {t:.4f} ms ({r['sdpa_tflops'][n]:.1f}"
+                                 f" TFLOP/s)" for n, t in
+                                 r["library_ms_by_backend"].items()))
+        log(f"[timing] K5 {name} {r['shape']}: {r['kernel']} kernel "
+            f"{r['ms']:.4f} ms/launch, plain {r['plain_ms']:.4f} ms, "
+            f"scaled_dot_product_attention {r['library_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}); timed by "
+            f"{r['timed_by']}" + extra
             + (f" (CUDA events around a loop of launches: "
                f"{r['event_loop_ms']:.4f} ms each)"
                if "event_loop_ms" in r else ""))
@@ -1499,6 +1830,7 @@ def run_cell_e(out):
     try:
         for mod, name in counters:
             setattr(mod, name, 0)
+        _k5_zero(k5)
         t0 = time.perf_counter()
         _, history = repro_torch.train("llama3.2-3b", preset="prod",
                                        overrides=CELL_E, gate="always",
@@ -1506,16 +1838,18 @@ def run_cell_e(out):
         torch.cuda.synchronize()
         total = time.perf_counter() - t0
         k1, k4, k5n, k6n, k2, k3 = (getattr(m, n) for m, n in counters)
+        k5_by = dict(k5.launches_by_kernel)
     finally:
         importance.unbiased_weights = real_w
     log(f"[cell E] {STEPS} steps in {total:.1f} s (model build included); "
         f"K5 {k5n} ({k5n / STEPS:g} a step, the IS branch's scoring "
-        f"forward), K1 {k1}, K2 {k2}, K3 {k3}, K4 {k4}, K6 {k6n} (not on "
+        f"forward; by kernel {k5_by}), K1 {k1}, K2 {k2}, K3 {k3}, K4 {k4}, K6 {k6n} (not on "
         f"this path)")
     assert len(history) == STEPS
     assert all(math.isfinite(h["loss"]) for h in history), history
     assert all(h["is_active"] == 1.0 for h in history), history
     assert k5n == N_LAYERS * STEPS, k5n
+    assert k5_by == {"wgmma": N_LAYERS * STEPS, "mma": 0}, k5_by
     assert (k1, k2, k3, k4, k6n) == (0, 0, 0, 0, 0)
     for r in hook.rows:
         assert math.isfinite(r["w_min"]) and r["w_min"] > 0, r
@@ -1557,10 +1891,30 @@ def run_cell_e(out):
         f"{op['k2']}, K3 {op['k3']}; scores within {rel:.3e} of sample_stats "
         f"(< 1e-4); candidates {sorted(idx.tolist())} = the host float64 "
         f"race's; gathered rows = the pool's rows at idx")
-    del exp, hook.exp, pool, sel, want
+    # K5's divergence by design in training use (measured, decides
+    # nothing): the same pool scored through the plain attention (given
+    # positions take the plain paths), the scores' worst relative error,
+    # and the draw's candidate set fed the same uniforms (same ctx)
+    positions = torch.arange(T, device="cuda")[None].expand(B, T)
+    _, plain = exp.lm.sample_stats({**pool, "positions": positions},
+                                   score_impl=exp.run.imp.score_impl)
+    k5_vs_plain = float(((want - plain).abs() / plain).max())
+    plain_idx = selection.presample_race_select(plain.cpu().numpy(), BATCH,
+                                                ctx=ctx)[0]
+    k5_idx = selection.presample_race_select(want.cpu().numpy(), BATCH,
+                                             ctx=ctx)[0]
+    op.update(k5_vs_plain_score_max_rel_err=k5_vs_plain,
+              k5_route_candidates=sorted(k5_idx.tolist()),
+              plain_route_candidates=sorted(plain_idx.tolist()),
+              candidates_equal=set(k5_idx.tolist()) == set(plain_idx.tolist()))
+    log(f"[cell E] K5 route vs plain attention on the pool (measured, no "
+        f"gate): scores' worst relative error {k5_vs_plain:.3e}; candidates "
+        f"{op['k5_route_candidates']} vs {op['plain_route_candidates']} "
+        f"(equal: {op['candidates_equal']})")
+    del exp, hook.exp, pool, sel, want, plain
     gc.collect()
     torch.cuda.empty_cache()
-    return hook.rows, op, total, breakdown
+    return hook.rows, op, total, breakdown, k5_by
 
 
 def time_k2_k3(gen):
@@ -1667,42 +2021,49 @@ def main():
     csrc = "src/repro_torch/kernels/{}/csrc/{}"
     fp_tpu = "src/repro/kernels/fused_presample/fused_presample.py:{}"
     kernels = [dict(name="ce_score_block", route="cuda",
+                    builds=[(k1k4.LIB, k1k4.SOURCES)],
                     source=csrc.format("ce_score", "ce_score_block.cu"),
                     replaces="src/repro/kernels/ce_score/ce_score.py:144",
-                    sources=k1k4.SOURCES,
                     held_by="phase 3 (K4) and 4 (prune)"),
                dict(name="race_keys", route="cuda",
+                    builds=[(k6.LIB, k6.SOURCES)],
                     source=csrc.format("topk_keys", "race_keys.cu"),
                     replaces="src/repro/kernels/topk_keys/topk_keys.py:71",
-                    sources=k6.SOURCES,
                     held_by="phase 8 (K6) and 9 (sharded)"),
                dict(name="flash_attention", route="cuda",
-                    source=csrc.format("flash_attn", "flash_attn_fwd.cu"),
+                    builds=[(k5.LIB_WGMMA, k5.SOURCES_WGMMA),
+                            (k5.LIB, k5.SOURCES)],
+                    source=csrc.format("flash_attn",
+                                       "flash_attn_fwd_wgmma.cu"),
                     replaces="src/repro/kernels/flash_attn/flash_attn.py:66",
-                    sources=k5.SOURCES,
-                    held_by="phase 13 (K5), 15 (serve lm-tiny) and 16 "
-                            "(cell C, against the plain route)"),
+                    held_by="phase 13 (K5, both kernels), 15 (serve "
+                            "lm-tiny, mma) and 16 (cell C: beside every "
+                            "plain attention call, and the route against "
+                            "the plain route)"),
                dict(name="ce_score", route="cuda",
+                    builds=[(k1k4.LIB_K1, k1k4.SOURCES_K1)],
                     source=csrc.format("ce_score", "ce_score.cu"),
                     replaces="src/repro/kernels/ce_score/ce_score.py:198",
-                    sources=k1k4.SOURCES_K1,
                     held_by="phase 14 (K1) and 17 (cell D, against "
                             "'fused')"),
                dict(name="row_score", route="cuda",
+                    builds=[(fp.LIB_K2, fp.SOURCES_K2)],
                     source=csrc.format("fused_presample", "row_score.cu"),
-                    replaces=fp_tpu.format(50), sources=fp.SOURCES_K2,
+                    replaces=fp_tpu.format(50),
                     held_by="phase 19 (K2, and the fused op against "
                             "fused_presample_ref) and 21 (cell E's op "
                             "against sample_stats)"),
                dict(name="pool_keys", route="cuda",
+                    builds=[(fp.LIB_K3, fp.SOURCES_K3)],
                     source=csrc.format("fused_presample", "pool_keys.cu"),
-                    replaces=fp_tpu.format(108), sources=fp.SOURCES_K3,
+                    replaces=fp_tpu.format(108),
                     held_by="phase 19 (K3 keys against the plain version's, "
                             "the fused op against fused_presample_ref) and "
                             "21 (cell E's op against the host race)")]
 
     smi = card()
-    build_all(kernels)
+    libs = build_all(kernels)
+    wgmma_build = check_wgmma_build(libs)
     gen = torch.Generator(device="cuda").manual_seed(0)
     err = check_k4(gen)
     check_prune(gen)
@@ -1727,14 +2088,24 @@ def main():
     k1_t = time_k1(gen)
     k23 = check_k2_k3(gen)
     tiny_presample = check_presample_lm_tiny()
-    e_rows, e_op, e_total, e_profile = run_cell_e(out)
+    e_rows, e_op, e_total, e_profile, k5_cell_e = run_cell_e(out)
     k23_t = time_k2_k3(gen)
 
     def entry(i, **kw):
         k = kernels[i]
         return {"name": k["name"], "route": k["route"], "source": k["source"],
                 "replaces": k["replaces"], **kw, "held_by": k["held_by"]}
-    pre = k5_t["prefill"]
+    pre, dec = k5_t["prefill"], k5_t["decode"]
+    k5_by_path = {"cell C serve": cell_c["k5_launches_by_kernel"],
+                  "cell D score": cell_d["k5_launches_by_kernel"],
+                  "cell A steps": k5_cell_a, "cell E steps": k5_cell_e}
+
+    def k5_paths(kernel):
+        return {path: by[kernel] for path, by in k5_by_path.items()}
+
+    def k5_worst(kernel):
+        return max(c["max_abs_err"] for c in k5_cases.values()
+                   if c["kernel"] == kernel)
     line = {"kernels": [
         entry(0, launches=launches, max_abs_err=err, ms=ms,
               plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
@@ -1747,11 +2118,38 @@ def main():
               max_row_rel_err=k5_rel, ms=pre["ms"],
               plain_ms=pre["plain_ms"], bound_ms=pre["bound_ms"],
               bound_by=pre["bound_by"], library_ms=pre["library_ms"],
-              timed_at="cell C prefill; decode in by_shape",
-              by_shape=k5_t, launches_by_path={
-                  "cell C serve": k5_launches,
-                  "cell D score": cell_d["k5_launches"],
-                  "cell A steps": k5_cell_a}),
+              library_ms_by_backend=pre["library_ms_by_backend"],
+              timed_at="cell C prefill (the wgmma kernel); the other shapes "
+                       "and decode (the mma kernel) in by_shape",
+              by_shape=k5_t, launches_by_path=k5_by_path,
+              kernels=[
+                  dict(name="flash_fwd_wgmma", route="cuda",
+                       source=csrc.format("flash_attn",
+                                          "flash_attn_fwd_wgmma.cu"),
+                       serves="bf16, hd 128, sq >= 64, TMA-aligned "
+                              "(prefill, scoring)",
+                       launches=cell_c["k5_launches_by_kernel"]["wgmma"],
+                       launches_by_path=k5_paths("wgmma"),
+                       max_abs_err=k5_worst("wgmma"), ms=pre["ms"],
+                       plain_ms=pre["plain_ms"], bound_ms=pre["bound_ms"],
+                       bound_by=pre["bound_by"],
+                       library_ms=pre["library_ms"],
+                       library_ms_by_backend=pre["library_ms_by_backend"],
+                       tflops=pre["tflops"], build=wgmma_build,
+                       timed_at="cell C prefill; (8, 1024) and (12, 1024) "
+                                "in by_shape"),
+                  dict(name="flash_mma", route="cuda",
+                       source=csrc.format("flash_attn", "flash_attn_fwd.cu"),
+                       serves="decode, f32, other head dims",
+                       launches=cell_c["k5_launches_by_kernel"]["mma"],
+                       launches_by_path=k5_paths("mma"),
+                       max_abs_err=k5_worst("mma"), ms=dec["ms"],
+                       plain_ms=dec["plain_ms"], bound_ms=dec["bound_ms"],
+                       bound_by=dec["bound_by"],
+                       library_ms=dec["library_ms"],
+                       library_ms_by_backend=None,
+                       timed_at="cell C decode (device activity); on the "
+                                "wgmma shapes as mma_ms in by_shape")]),
         entry(3, launches=k1_launches, max_abs_err=k1_err, ms=k1_t[0],
               plain_ms=k1_t[1], bound_ms=k1_t[2], bound_by=k1_t[3],
               library_ms=None, launches_by_path={
@@ -1774,6 +2172,7 @@ def main():
               timed_at="cell E's pool, B = 12; B = 768 in by_shape",
               by_shape={k: v for k, v in k23_t.items()
                         if k.startswith("K3")})]}
+    loaded = check_built_once(libs)
     ok = {"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}}
@@ -1785,7 +2184,7 @@ def main():
          "k2_k3": k23, "k2_k3_timing": k23_t,
          "presample_lm_tiny": tiny_presample,
          "cell_e_steps": e_rows, "cell_e_op": e_op, "cell_e_total_s": e_total,
-         "cell_e_profile": e_profile,
+         "cell_e_profile": e_profile, "libraries_loaded": loaded,
          **line, **ok}, indent=1))
     print(smi)
     print(json.dumps(line))

@@ -24,7 +24,9 @@ import torch
 from torch import Tensor
 
 _CSRC = Path(__file__).with_name("csrc")
+LIB = "ce_score_block"                  # K4's library
 SOURCES = (_CSRC / "ce_score_block.cu", _CSRC / "ce_stream.cuh")
+LIB_K1 = "ce_score"                     # K1's library
 SOURCES_K1 = (_CSRC / "ce_score.cu", _CSRC / "ce_stream.cuh")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -34,7 +36,7 @@ ce_score_launches = 0
 
 def _k1_lib():
     from repro_torch.kernels import build
-    fn = build.load("ce_score", SOURCES_K1).ce_score_launch
+    fn = build.load(LIB_K1, SOURCES_K1).ce_score_launch
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     fn.argtypes = [p, i, ll, i, i, p, p, p, p]
     fn.restype = ctypes.c_int
@@ -78,7 +80,7 @@ def ce_score_cuda(logits: Tensor, labels: Tensor) -> tuple[Tensor, Tensor]:
 
 def _lib():
     from repro_torch.kernels import build
-    lib = build.load("ce_score_block", SOURCES)
+    lib = build.load(LIB, SOURCES)
     fn = lib.ce_score_block_launch
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     fn.argtypes = [p, i, ll, ll, i, i, i, p, ll, ll, p, i, p, p, p, p, p]

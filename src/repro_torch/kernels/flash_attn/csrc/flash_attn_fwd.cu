@@ -21,9 +21,14 @@
 // would copy the KV cache g times in every layer at every step. Decode
 // (sq = 1) packs its g query heads into one block.
 //
-// Bound: at the prefill shape (8 x 4096 x 24 heads x 128, causal) the
-// matmuls (4*b*hq*hd*sum_i(i+1) = 8.25e11 flop a layer) make it
-// compute-bound; at decode (sq = 1) reading the cache once is the bound.
+// The wgmma kernel (flash_attn_fwd_wgmma.cu) takes bf16 prefill and
+// scoring at hd = 128 (the wrapper's kernel_for rule: at least 64 query
+// rows, TMA-aligned q, k, v); this kernel serves decode (sq = 1, the kv
+// range split), f32 (lm-tiny), the other bf16 head dims and calls not
+// aligned for TMA.
+//
+// Bound: at decode (sq = 1) reading the cache once is the bound; a
+// prefill (4*b*hq*hd*sum_i(i+1) flop) is compute-bound.
 // The design for each:
 //   * bf16: mma.sync m16n8k16 (bf16 in, f32 accumulate) for Q K^T and
 //     P V; K and V tiles stream through a 2-stage cp.async ring in shared
@@ -36,8 +41,7 @@
 //   * when the grid would not fill the card (decode) the kv range is split
 //     over blockIdx.z; each split writes unnormalised (acc, m, l) and a
 //     second kernel merges them (flash-decoding).
-// Wholly tensor-core work on Hopper would use wgmma and TMA; this first
-// version keeps to mma.sync.
+// It keeps to mma.sync; the wgmma kernel is Hopper's full-rate path.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

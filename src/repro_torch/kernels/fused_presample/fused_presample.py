@@ -25,7 +25,9 @@ from torch import Tensor
 from repro_torch.kernels.fused_presample.race import race_uniforms
 
 _CSRC = Path(__file__).with_name("csrc")
+LIB_K2 = "row_score"                    # K2's library
 SOURCES_K2 = (_CSRC / "row_score.cu",)
+LIB_K3 = "pool_keys"                    # K3's library
 SOURCES_K3 = (_CSRC / "pool_keys.cu",
               _CSRC.parents[1] / "topk_keys" / "csrc" / "race_hash.cuh")
 
@@ -60,7 +62,7 @@ def pool_keys_plain(scores, ctx, inv_total):
 
 def _k2_lib():
     from repro_torch.kernels import build
-    fn = build.load("row_score", SOURCES_K2).row_score_launch
+    fn = build.load(LIB_K2, SOURCES_K2).row_score_launch
     p = ctypes.c_void_p
     fn.argtypes = [p, p, ctypes.c_longlong, ctypes.c_int, p, p]
     fn.restype = ctypes.c_int
@@ -69,7 +71,7 @@ def _k2_lib():
 
 def _k3_lib():
     from repro_torch.kernels import build
-    fn = build.load("pool_keys", SOURCES_K3).pool_keys_launch
+    fn = build.load(LIB_K3, SOURCES_K3).pool_keys_launch
     p = ctypes.c_void_p
     fn.argtypes = [p, ctypes.c_longlong, ctypes.c_uint, p, p, p]
     fn.restype = ctypes.c_int

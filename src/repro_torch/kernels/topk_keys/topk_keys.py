@@ -18,6 +18,7 @@ import torch
 from torch import Tensor
 
 _CSRC = Path(__file__).with_name("csrc")
+LIB = "race_keys"                       # K6's library
 SOURCES = (_CSRC / "race_keys.cu", _CSRC / "race_hash.cuh")
 
 launches = 0
@@ -25,7 +26,7 @@ launches = 0
 
 def _lib():
     from repro_torch.kernels import build
-    fn = build.load("race_keys", SOURCES).race_keys_launch
+    fn = build.load(LIB, SOURCES).race_keys_launch
     p, u, f = ctypes.c_void_p, ctypes.c_uint, ctypes.c_float
     fn.argtypes = [p, p, ctypes.c_longlong, u, u, u, f, f, f, f, p, p]
     fn.restype = ctypes.c_int

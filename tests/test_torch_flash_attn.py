@@ -203,3 +203,217 @@ def test_forward_only_route_is_chosen_on_cuda(cuda, monkeypatch):
         lm({"tokens": toks})
     n = lm.cfg.segments[0].repeats
     assert calls == [0] * n and k5.launches == before + n
+
+
+# --- the two CUDA kernels: the dispatch rule and the wgmma kernel ----------
+# The rule, the checks and the tensor-map geometry are plain Python: they
+# run here.
+@pytest.mark.parametrize("dtype,hd,sq,aligned,kernel", [
+    ("bfloat16", 128, 4096, True, "wgmma"),   # cell C prefill
+    ("bfloat16", 128, 1024, True, "wgmma"),   # cells A, D and E
+    ("bfloat16", 128, 1, True, "mma"),        # cell C decode
+    ("bfloat16", 128, 63, True, "mma"),       # under WGMMA_MIN_ROWS
+    ("bfloat16", 128, 64, True, "wgmma"),
+    ("bfloat16", 128, 65, True, "wgmma"),
+    ("bfloat16", 128, 64, False, "mma"),      # not TMA-aligned
+    ("bfloat16", 128, 333, False, "mma"),
+    ("bfloat16", 64, 1024, True, "mma"),      # other head dims
+    ("bfloat16", 32, 64, True, "mma"),
+    ("float32", 128, 1024, True, "mma"),      # f32
+    ("float32", 16, 64, True, "mma"),         # lm-tiny
+])
+def test_dispatch_rule(dtype, hd, sq, aligned, kernel):
+    from repro_torch.kernels.flash_attn.flash_attn import kernel_for
+    assert kernel_for(getattr(torch, dtype), hd, sq, aligned) == kernel
+
+
+@pytest.mark.parametrize("scale", [0.0, -0.1, float("nan")])
+def test_dispatch_rule_sends_other_scales_to_mma(scale):
+    """The wgmma kernel takes its row max on the unscaled scores, so only
+    a positive softmax scale goes to it; the mma kernel takes any other."""
+    from repro_torch.kernels.flash_attn.flash_attn import kernel_for, plan
+    assert kernel_for(torch.bfloat16, 128, 1024, True, 0.05) == "wgmma"
+    assert kernel_for(torch.bfloat16, 128, 1024, True, scale) == "mma"
+    q = torch.zeros(2, 128, 6, 128, dtype=torch.bfloat16)
+    k = torch.zeros(2, 128, 2, 128, dtype=torch.bfloat16)
+    assert plan(q, k, k) == "wgmma"
+    assert plan(q, k, k, scale) == "mma"
+
+
+def _view_at(shape, offset, dtype=torch.bfloat16):
+    """A contiguous tensor of ``shape`` whose base sits ``offset`` elements
+    into a larger buffer (misaligned when offset·itemsize % 16 != 0)."""
+    n = int(np.prod(shape))
+    return torch.zeros(n + offset, dtype=dtype)[offset:].view(shape)
+
+
+def test_plan_names_the_kernel_from_the_tensors():
+    from repro_torch.kernels.flash_attn.flash_attn import plan
+    q = torch.zeros(2, 128, 6, 128, dtype=torch.bfloat16)
+    cache = torch.zeros(2, 300, 2, 128, dtype=torch.bfloat16)
+    k, v = cache[:, :128], cache[:, :128]
+    assert plan(q, k, v) == "wgmma"
+    assert plan(q[:, :1], k, v) == "mma"                  # decode
+    # q 4-byte aligned (the mma kernel's rule), not 16 (TMA's)
+    assert plan(_view_at(q.shape, 2), k, v) == "mma"
+    # q's row stride 8 bytes off a multiple of 16
+    qs = torch.zeros(2, 128, 6, 132, dtype=torch.bfloat16)[..., :128]
+    assert plan(qs, k, v) == "mma"
+    assert plan(q.float(), k.float(), v.float()) == "mma"
+
+
+@pytest.mark.parametrize("case", ["bf16 hd 80", "f32 hd 256",
+                                  "k rows misaligned", "hd stride",
+                                  "k and v differ", "mixed dtypes",
+                                  "not grouped"])
+def test_plan_raises_for_a_call_neither_kernel_takes(case):
+    from repro_torch.kernels.flash_attn.flash_attn import plan
+    bf = torch.bfloat16
+    q = torch.zeros(2, 128, 4, 128, dtype=bf)
+    k = torch.zeros(2, 128, 2, 128, dtype=bf)
+    v = k
+    if case == "bf16 hd 80":
+        q, k = q[..., :80].contiguous(), k[..., :80].contiguous()
+        v = k
+    elif case == "f32 hd 256":
+        q = torch.zeros(2, 128, 4, 256)
+        k = v = torch.zeros(2, 128, 2, 256)
+    elif case == "k rows misaligned":
+        k = v = _view_at(k.shape, 4)
+    elif case == "hd stride":
+        k = v = torch.zeros(2, 128, 2, 256, dtype=bf)[..., ::2]
+    elif case == "k and v differ":
+        v = torch.zeros(2, 100, 2, 128, dtype=bf)
+    elif case == "mixed dtypes":
+        v = k.float()
+    elif case == "not grouped":
+        k = v = torch.zeros(2, 128, 3, 128, dtype=bf)
+    with pytest.raises(ValueError):
+        plan(q, k, v)
+
+
+def test_tma_geometry():
+    """dims (hd, s, heads, b), then byte strides of s, heads and b; a
+    prefix view of a cache maps its prefix n, not the cache's capacity."""
+    from repro_torch.kernels.flash_attn.flash_attn import plan, tma_geometry
+    q = torch.zeros(2, 100, 6, 128, dtype=torch.bfloat16)
+    assert tma_geometry(q) == (128, 100, 6, 2, 6 * 256, 256, 100 * 6 * 256)
+    # cell C: the serve path's prefix view of a 4160-slot cache
+    cache = torch.zeros(3, 4160, 8, 128, dtype=torch.bfloat16)
+    view = cache[:, :4096]
+    assert tma_geometry(view) == (
+        128, 4096, 8, 3, 8 * 256, 256, 4160 * 8 * 256)
+    assert plan(torch.zeros(3, 4096, 24, 128, dtype=torch.bfloat16), view,
+                view) == "wgmma"
+    # a size-1 dim is never stepped over: contiguous strides stand in
+    one = torch.zeros(5, 1, 2, 128, dtype=torch.bfloat16)[:1]
+    assert tma_geometry(one) == (128, 1, 2, 1, 256, 256, 512)
+    odd = torch.zeros(1, 64, 1, 128, dtype=torch.bfloat16).as_strided(
+        (1, 64, 1, 128), (7, 128, 3, 1))
+    assert tma_geometry(odd) == (128, 64, 1, 1, 256, 64 * 256, 64 * 256)
+
+
+WGMMA_CASES = [
+    # b, sq, skv, hq, hkv, window, q_offset, cache slots (0: no cache),
+    # softmax scale (None: hd^-0.5)
+    (2, 64, 64, 6, 2, 0, 0, 0, None),         # the rule's least sq, g = 3
+    (2, 127, 127, 6, 2, 0, 0, 0, None),       # tile edges
+    (2, 128, 128, 6, 2, 0, 0, 0, None),
+    (2, 129, 129, 6, 2, 0, 0, 0, None),
+    (3, 333, 333, 6, 2, 0, 0, 0, None),
+    (2, 64, 127, 6, 2, 0, 63, 0, None),       # sq and skv on other edges
+    (1, 127, 333, 6, 2, 0, 206, 400, None),
+    (2, 77, 177, 4, 2, 0, 100, 300, None),    # sq > 1 at q_offset 100, k
+                                              # and v prefix views of a
+                                              # cache, g = 2
+    (1, 300, 300, 4, 4, 100, 0, 0, None),     # a window, g = 1
+    (2, 200, 456, 6, 3, 64, 256, 512, None),  # window and offset, a cache
+    # windows at other scales: rows whose block's first kv tile is wholly
+    # masked for them must stay finite
+    (1, 300, 300, 4, 4, 100, 0, 0, 0.1),
+    (2, 200, 456, 6, 3, 64, 256, 512, 0.2),
+    # more work tiles (b·hq·⌈sq/128⌉ = 144) than an H100 has SMs (132),
+    # so blocks of the persistent grid walk two tiles each
+    (8, 333, 333, 6, 2, 0, 0, 0, None),
+    (12, 200, 456, 6, 3, 64, 256, 512, 0.2),
+]
+
+
+def _wgmma_inputs(cuda, b, sq, skv, hq, hkv, q_offset, slots, q_scale=1.0):
+    q, k, v = (torch.from_numpy(t).to(cuda, torch.bfloat16)
+               for t in _qkv(b, sq, max(skv, slots), hq, hkv, 128,
+                             seed=sq + q_offset))
+    q = (q.float() * q_scale).bfloat16()
+    if slots:
+        k, v = k[:, :skv], v[:, :skv]
+    return q, k, v
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q_scale", [1.0, 6.0])
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,window,q_offset,slots,scale",
+                         WGMMA_CASES)
+def test_wgmma_kernel_matches_plain_on_gpu(cuda, q_scale, b, sq, skv, hq,
+                                           hkv, window, q_offset, slots,
+                                           scale):
+    """The wgmma kernel (bf16, hd 128) against the plain version on the
+    card, within the bf16 ``tol`` of every output and ``ROW_REL`` of each
+    row's scale, no NaN; its counter moves and the mma kernel's does not."""
+    from repro_torch.kernels.flash_attn import flash_attn as k5
+    tol = 3e-2
+    q, k, v = _wgmma_inputs(cuda, b, sq, skv, hq, hkv, q_offset, slots,
+                            q_scale)
+    kw = dict(window=window, q_offset=q_offset, scale=scale)
+    before = dict(k5.launches_by_kernel)
+    got = flash_attention(q, k, v, **kw)
+    assert k5.launches_by_kernel == dict(before, wgmma=before["wgmma"] + 1)
+    want = flash_attention(q.float(), k.float(), v.float(), interpret=True,
+                           **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol)
+    assert _row_rel_err(got, want) <= ROW_REL["bfloat16"]
+
+
+@pytest.mark.gpu
+def test_negative_scale_runs_on_the_mma_kernel_on_gpu(cuda):
+    """A bf16 hd-128 prefill at a negative softmax scale goes to the mma
+    kernel, which takes its row max on the scaled scores, and matches the
+    plain version."""
+    from repro_torch.kernels.flash_attn import flash_attn as k5
+    q, k, v = _wgmma_inputs(cuda, 2, 200, 200, 6, 2, 0, 0)
+    before = dict(k5.launches_by_kernel)
+    got = flash_attention(q, k, v, scale=-0.1)
+    assert k5.launches_by_kernel == dict(before, mma=before["mma"] + 1)
+    want = flash_attention(q.float(), k.float(), v.float(), interpret=True,
+                           scale=-0.1)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want, rtol=3e-2, atol=3e-2)
+    assert _row_rel_err(got, want) <= ROW_REL["bfloat16"]
+
+
+@pytest.mark.gpu
+def test_wgmma_two_launches_give_the_same_bits(cuda):
+    """No atomics: the same inputs give the same bits, launch after launch
+    (serve's tokens are reproduced through the K5 route on that)."""
+    q, k, v = _wgmma_inputs(cuda, 2, 1000, 1000, 24, 8, 0, 0, 6.0)
+    first = flash_attention(q, k, v)
+    assert torch.equal(flash_attention(q, k, v), first)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["bf16 hd 80", "f32 hd 256"])
+def test_cuda_call_neither_kernel_takes_raises(cuda, case):
+    """A CUDA call that neither kernel takes raises: no fallback to the
+    other kernel or to the plain version."""
+    from repro_torch.kernels.flash_attn import flash_attn as k5
+    if case == "bf16 hd 80":
+        q = torch.zeros(2, 128, 4, 80, dtype=torch.bfloat16, device=cuda)
+        k = torch.zeros(2, 128, 2, 80, dtype=torch.bfloat16, device=cuda)
+    else:
+        q = torch.zeros(2, 128, 4, 256, device=cuda)
+        k = torch.zeros(2, 128, 2, 256, device=cuda)
+    before = k5.launches
+    with pytest.raises(ValueError):
+        flash_attention(q, k, k)
+    assert k5.launches == before
