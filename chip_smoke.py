@@ -114,15 +114,22 @@ Phases, in order; each raises on failure, so the process exits non-zero:
               its device activity under the profiler, since a launch there
               is shorter than its dispatch.
 
-19. K2/K3     — ``row_score`` (K2) against its plain version on the card at
-              cell E's pool (12, 1024), at ``prod``'s pool (768, 4096) and a
-              ragged (37, 13), a 20 % mask, rtol ``K2_RTOL``; ``pool_keys``
-              (K3) at B = 12, 100, 768, 1024, ctx 0 and 2³²−1, a −1 pad lane:
-              keys bitwise the plain version's fed the same scores and 1/Σs
-              (else worst relative error within ``K6_RTOL``), bottom-(k+1)
-              equal; ``fused_presample`` and ``select_pool`` on seeded bf16
-              logits at (12, 1024, 128256) against ``fused_presample_ref``:
-              indices and gathered rows equal, weights and scores to 1e-5;
+19. pool_select — the one launch that computes K2 and K3 and the
+              selection they feed (``pool_select_cuda``), at cell E's pool
+              (12, 1024), ``prod``'s pool (768, 4096), a ragged (37, 13) and
+              70 000 rows (keys and winners beyond shared memory), a 20 %
+              mask, k = 1, B/4, B−1, B, ctx 0 and 2³²−1: scores against
+              ``row_score_math`` to ``K2_RTOL``; keys bitwise
+              ``pool_keys_plain`` fed the kernel's own scores and 1/Σs; idx
+              and thr ``_bottom_k`` of its own keys; 1/Σs, probs and weights
+              to 1e-6; two launches the same bits. The scores given
+              (``select_pool``'s launch) at B = 12, 100, 768, 1024 with a −1
+              pad lane: the same stage checks, ``select_pool`` equal to
+              ``select_pool_ref``; 70 pads of 100 rows with k + 1 above the
+              live rows: the +inf ties won by the lowest pad rows.
+              ``fused_presample`` and ``select_pool`` on seeded bf16 logits
+              at (12, 1024, 128256) against ``fused_presample_ref``: indices
+              and gathered rows equal, weights and scores to 1e-5;
 20. presample lm-tiny — the ``presample`` step kind at lm-tiny on the card
               against the same run on the CPU, ``gate="never"`` and
               ``"always"`` (both runs handed one seeded numpy draw, a check
@@ -131,22 +138,26 @@ Phases, in order; each raises on failure, so the process exits non-zero:
               {"imp.presample_impl": "step", ...}, gate="always")``: full
               width and depth, pool 12, the cuts printed; counts zeroed just
               before and read just after (K5: 28 a step, the wgmma
-              kernel's; K1, K2, K3, K4: 0);
+              kernel's; K1, pool_select, K4: 0);
               per step the loss, τ, weights, wall time, peak memory (step
               ``PROFILED`` under ``torch.profiler``); then one
               ``fused_presample`` on a fresh pool's logits from the final
-              params (K1, K2, K3 once each): scores against ``sample_stats``
+              params (K1 once, then ``pool_select`` once): scores against
+              ``sample_stats``
               (the step's scoring route) to 1e-4, the candidate set equal to
               the host's float64 race, the gathered rows the pool's; and,
               measured without a gate, the same pool scored through the
               plain attention: the scores' worst relative error against the
               K5 route's and whether the race fed the same uniforms draws
               the same candidates;
-22. K2/K3 timing — K2 at both shapes (inputs rotated through copies
-              that exceed the L2 cache), K3 at B = 12 and 768 (device time
-              under the profiler: a launch is shorter than its dispatch),
-              ``select_pool``, ``fused_presample`` and its K1 stage at cell
-              E's pool, each beside its plain version and its bound.
+22. pool_select timing — the launch at cell E's pool (k 4) and prod's
+              (768, 4096, k 256) (inputs rotated through copies that exceed
+              the L2 cache), ``select_pool`` at cell E's pool (device time
+              under the profiler: a launch is shorter than its dispatch;
+              CUDA events around a loop of calls beside), the one-launch
+              floor (a one-element ``zero_()``, the same way),
+              ``fused_presample`` and its K1 stage at cell E's pool (CUDA
+              events), each beside its plain version and its bound.
 
 Phase 6 also counts K5, which runs cell A's forward-only pool scoring
 (28 launches a step).
@@ -385,9 +396,8 @@ KERNEL_GROUPS = (  # first match wins; names as the profiler reports them
     ("K4 ce_score_block", ("ce_token_kernel", "row_sum_kernel")),
     ("K5 flash_attention", ("flash_fwd_wgmma_kernel", "flash_bf16_kernel",
                             "flash_f32_kernel", "combine_kernel")),
-    ("K1/K2/K3 ce_score, row_score, pool_keys", ("ce_score_kernel",
-                                                 "row_score_kernel",
-                                                 "pool_keys_kernel")),
+    ("K1, K2/K3 ce_score, pool_select", ("ce_score_kernel",
+                                         "pool_select_kernel")),
     ("matmul", ("gemm", "nvjet", "xmma", "cutlass", "sgemm")),
     ("memcpy/memset", ("Memcpy", "Memset")),
     ("elementwise/reduce", ("",)),
@@ -1594,64 +1604,109 @@ def _fused_pool(gen, pad_frac=0.1):
     return z, y, {"tokens": toks, "labels": y}
 
 
-def _k3_inputs(B, gen):
-    """Pool scores with a −1 pad lane and their 1/Σs, on the card."""
-    s = torch.rand(B, generator=gen, device="cuda").mul_(5.0).add_(0.01)
-    s[B // 2] = -1.0
-    return s, (1.0 / torch.clamp(s.clamp(min=0).sum(), min=1e-20)).reshape(1)
+def _bits(t):
+    """A tensor's bits, to compare two launches bit for bit."""
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
 
 
-def check_k2_k3(gen):
+def _pool_select_stages(out, ctx, k):
+    """Each output of one ``pool_select`` launch against the plain version
+    fed the kernel's own earlier outputs: 1/Σs within 1e-6 (Σs in another
+    order); keys bitwise ``pool_keys_plain`` on the kernel's scores and
+    1/Σs; idx and thr ``_bottom_k`` of its own keys; probs and w within
+    1e-6 of ``ht_weights`` on its idx and thr. Returns the worst relative
+    error of 1/Σs, probs and w."""
+    from repro_torch.kernels.fused_presample import fused_presample as fp
+    from repro_torch.kernels.topk_keys.ops import _bottom_k
+    s, inv_total, keys, idx, probs, w, thr = out
+    B = s.shape[0]
+    total = torch.clamp(s.sum(), min=1e-20)
+    assert torch.equal(keys, fp.pool_keys_plain(s, ctx, inv_total))
+    if k < B:
+        vals, slots = _bottom_k(keys, k + 1)
+        assert torch.equal(idx, slots[:k]) and torch.equal(thr, vals[k])
+        want = fp.ht_weights(s, total, idx, thr)
+    else:
+        assert torch.equal(idx, torch.arange(B, device=s.device))
+        assert float(thr) == float("inf")
+        want = s / total, torch.full_like(s, 1.0 / max(B, 1))
+    rel = 0.0
+    for a, b in zip((inv_total, probs, w),
+                    ((1.0 / total).reshape(1), *want)):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=0)
+        fin = torch.isfinite(b) & (b != 0)
+        if bool(fin.any()):
+            rel = max(rel, float(((a - b)[fin].abs() / b[fin].abs()).max()))
+    return rel
+
+
+def check_pool_select(gen):
     """Phase 19. Returns the worst errors and what the fused op gave."""
     from repro_torch.kernels.fused_presample import fused_presample as fp
-    from repro_torch.kernels.fused_presample.ops import (_pool_keys,
-                                                         _row_score,
-                                                         fused_presample,
+    from repro_torch.kernels.fused_presample.ops import (fused_presample,
                                                          select_pool)
     from repro_torch.kernels.fused_presample.ref import (fused_presample_ref,
                                                          select_pool_ref)
-    from repro_torch.kernels.topk_keys.ops import _bottom_k
     from repro_torch.sampler.selection import hash_context
     res = {"k2_max_abs_err": 0.0, "k2_max_rel_err": 0.0,
-           "k3_max_abs_err": 0.0, "k3_max_rel_err": 0.0, "k3_bitwise": True}
-    for B, T in ((12, 1024), (768, 4096), (37, 13)):
+           "k3_max_abs_err": 0.0, "k3_bitwise": True,
+           "select_max_rel_err": 0.0, "two_launches_same_bits": True}
+    for B, T in ((12, 1024), (768, 4096), (37, 13), (70000, 8)):
         g2 = torch.rand((B, T), generator=gen, device="cuda").mul_(2.0)
         mask = torch.rand((B, T), generator=gen, device="cuda") >= 0.2
-        got, want = _row_score(g2, mask), fp.row_score_math(g2, mask)
-        torch.cuda.synchronize()
-        torch.testing.assert_close(got, want, rtol=K2_RTOL, atol=0)
-        rel = float(((got - want).abs() / want).max())
-        res["k2_max_rel_err"] = max(res["k2_max_rel_err"], rel)
-        res["k2_max_abs_err"] = max(res["k2_max_abs_err"],
-                                    float((got - want).abs().max()))
-        log(f"[k2] ({B}, {T}), 20 % masked: max |kernel - plain| / plain = "
-            f"{rel:.3e} (rtol {K2_RTOL})")
+        want = fp.row_score_math(g2, mask)
+        ks = sorted({1, B // 4, B - 1, B})
+        for k in ks:
+            for ctx in (0, 0xFFFFFFFF):
+                out = fp.pool_select_cuda(g2, mask, ctx, k)
+                again = fp.pool_select_cuda(g2, mask, ctx, k)
+                torch.cuda.synchronize()
+                assert all(torch.equal(_bits(a), _bits(b))
+                           for a, b in zip(out, again)), (B, T, k, ctx)
+                got = out[0]
+                torch.testing.assert_close(got, want, rtol=K2_RTOL, atol=0)
+                res["k2_max_rel_err"] = max(
+                    res["k2_max_rel_err"],
+                    float(((got - want).abs() / want).max()))
+                res["k2_max_abs_err"] = max(res["k2_max_abs_err"],
+                                            float((got - want).abs().max()))
+                res["select_max_rel_err"] = max(
+                    res["select_max_rel_err"],
+                    _pool_select_stages(out, ctx, k))
+        log(f"[pool_select] ({B}, {T}), 20 % masked, k {ks}, ctx 0 and "
+            f"2^32-1: scores within {res['k2_max_rel_err']:.3e} of "
+            f"row_score_math (rtol {K2_RTOL}); keys bitwise pool_keys_plain "
+            f"on the kernel's scores and 1/sum; idx and thr = _bottom_k of "
+            f"its keys; two launches the same bits")
+    # the scores given (select_pool's launch), a -1 pad lane
     for B in (12, 100, 768, 1024):
         for ctx in (0, 0xFFFFFFFF):
-            s, inv_total = _k3_inputs(B, gen)
-            got = _pool_keys(s, ctx, inv_total)
-            want = fp.pool_keys_plain(s, ctx, inv_total)
-            torch.cuda.synchronize()
-            live = torch.isfinite(want)
-            assert torch.equal(torch.isfinite(got), live), "pad lanes differ"
-            assert int((~live).sum()) == 1
-            bitwise = torch.equal(got, want)
-            tiny = torch.finfo(torch.float32).tiny
-            rel = float(((got[live] - want[live]).abs()
-                         / want[live].abs().clamp(min=tiny)).max())
+            s = torch.rand(B, generator=gen, device="cuda").mul_(5.0) \
+                .add_(0.01)
+            s[B // 2] = -1.0
             k = B // 4
-            assert torch.equal(_bottom_k(got, k + 1)[1],
-                               _bottom_k(want, k + 1)[1]), (B, ctx)
-            if not bitwise:
-                assert rel <= K6_RTOL, (B, ctx, rel)
-            res["k3_bitwise"] &= bitwise
-            res["k3_max_rel_err"] = max(res["k3_max_rel_err"], rel)
-            res["k3_max_abs_err"] = max(
-                res["k3_max_abs_err"],
-                float((got[live] - want[live]).abs().max()))
-            log(f"[k3] B={B}, ctx {ctx:#x}, one pad lane: keys bitwise "
-                f"{bitwise} (max relative error {rel:.3e}); bottom-{k + 1} "
-                f"rows equal")
+            out = fp.pool_select_scores_cuda(s, ctx, k)
+            res["select_max_rel_err"] = max(res["select_max_rel_err"],
+                                            _pool_select_stages(out, ctx, k))
+            got, want = select_pool(s, ctx, k=k), select_pool_ref(s, ctx,
+                                                                  k=k)
+            assert torch.equal(got[0], want[0]), (B, ctx)
+            for a, b in zip(got[1:], want[1:]):
+                torch.testing.assert_close(a, b, rtol=1e-6, atol=0)
+    # 70 of 100 rows padded and k + 1 above the 30 live ones: +inf ties,
+    # won by the lowest pad rows in row order
+    s = torch.rand(100, generator=gen, device="cuda").mul_(5.0).add_(5.0)
+    pads = torch.randperm(100, generator=gen, device="cuda")[:70].sort()[0]
+    s[pads] = -1.0
+    out = fp.pool_select_scores_cuda(s, 4211, 50)
+    _pool_select_stages(out, 4211, 50)
+    assert float(out[6]) == float("inf")
+    assert torch.equal(out[3][30:], pads[:20])
+    log("[pool_select] scores given, B = 12, 100, 768, 1024, a -1 pad lane: "
+        "keys bitwise, select_pool = select_pool_ref; 70 pads of 100 with "
+        "k + 1 = 51: +inf ties won by the lowest pad rows; probs, weights, "
+        f"1/sum and thr within {res['select_max_rel_err']:.3e} of the plain "
+        "version on the kernel's scores")
     # the whole op at cell E's pool, against the unfused plain composition
     B, T, V = POOL
     k = BATCH
@@ -1826,7 +1881,7 @@ def run_cell_e(out):
     importance.unbiased_weights = record_weights
     counters = ((k1k4, "ce_score_launches"), (k1k4, "launches"),
                 (k5, "launches"), (k6, "launches"),
-                (fp, "row_score_launches"), (fp, "pool_keys_launches"))
+                (fp, "pool_select_launches"))
     try:
         for mod, name in counters:
             setattr(mod, name, 0)
@@ -1837,20 +1892,20 @@ def run_cell_e(out):
                                        hooks=[hook])
         torch.cuda.synchronize()
         total = time.perf_counter() - t0
-        k1, k4, k5n, k6n, k2, k3 = (getattr(m, n) for m, n in counters)
+        k1, k4, k5n, k6n, ps = (getattr(m, n) for m, n in counters)
         k5_by = dict(k5.launches_by_kernel)
     finally:
         importance.unbiased_weights = real_w
     log(f"[cell E] {STEPS} steps in {total:.1f} s (model build included); "
         f"K5 {k5n} ({k5n / STEPS:g} a step, the IS branch's scoring "
-        f"forward; by kernel {k5_by}), K1 {k1}, K2 {k2}, K3 {k3}, K4 {k4}, K6 {k6n} (not on "
-        f"this path)")
+        f"forward; by kernel {k5_by}), K1 {k1}, pool_select (K2/K3) {ps}, "
+        f"K4 {k4}, K6 {k6n} (not on this path)")
     assert len(history) == STEPS
     assert all(math.isfinite(h["loss"]) for h in history), history
     assert all(h["is_active"] == 1.0 for h in history), history
     assert k5n == N_LAYERS * STEPS, k5n
     assert k5_by == {"wgmma": N_LAYERS * STEPS, "mma": 0}, k5_by
-    assert (k1, k2, k3, k4, k6n) == (0, 0, 0, 0, 0)
+    assert (k1, ps, k4, k6n) == (0, 0, 0, 0)
     for r in hook.rows:
         assert math.isfinite(r["w_min"]) and r["w_min"] > 0, r
     breakdown = step_breakdown(hook.prof, hook.rows, out, "profile E",
@@ -1871,11 +1926,11 @@ def run_cell_e(out):
         sel, idx, w, sc = fused_presample(logits, pool["labels"], pool, ctx,
                                           k=BATCH)
         torch.cuda.synchronize()
-        op = dict(k1=k1k4.ce_score_launches, k2=fp.row_score_launches,
-                  k3=fp.pool_keys_launches, k4=k1k4.launches)
+        op = dict(k1=k1k4.ce_score_launches,
+                  pool_select=fp.pool_select_launches, k4=k1k4.launches)
         del logits
         _, want = exp.lm.sample_stats(pool, score_impl=exp.run.imp.score_impl)
-    assert (op["k1"], op["k2"], op["k3"], op["k4"]) == (1, 1, 1, 0), op
+    assert (op["k1"], op["pool_select"], op["k4"]) == (1, 1, 0), op
     rel = float(((sc - want).abs() / want).max())
     assert rel < 1e-4, rel
     host_idx, _, host_w, _ = selection.presample_race_select(
@@ -1887,8 +1942,9 @@ def run_cell_e(out):
               score_max_rel_err_vs_sample_stats=rel,
               weights=w.tolist(), host_weights=list(map(float, host_w)))
     log(f"[cell E] fused_presample on the next pool's logits "
-        f"({B}, {T}, {V}) from the final params: K1 {op['k1']}, K2 "
-        f"{op['k2']}, K3 {op['k3']}; scores within {rel:.3e} of sample_stats "
+        f"({B}, {T}, {V}) from the final params: K1 {op['k1']}, "
+        f"pool_select {op['pool_select']}; scores within {rel:.3e} of "
+        f"sample_stats "
         f"(< 1e-4); candidates {sorted(idx.tolist())} = the host float64 "
         f"race's; gathered rows = the pool's rows at idx")
     # K5's divergence by design in training use (measured, decides
@@ -1917,21 +1973,25 @@ def run_cell_e(out):
     return hook.rows, op, total, breakdown, k5_by
 
 
-def time_k2_k3(gen):
-    """Phase 22: K2, K3, select_pool and the fused op per call, beside
-    their plain versions and bounds. K2 and K3 launches, and the selection
-    stage, take less device time than the host needs to issue them, so
+def time_pool_select(gen):
+    """Phase 22: the pool_select launch at cell E's and prod's pools,
+    select_pool and the fused op per call, beside their plain versions and
+    bounds, and the one-launch floor. A pool_select launch, and the plain
+    selection, take less device time than the host needs to issue them, so
     their time is their device activity under the profiler (CUDA events
     around a loop of calls kept beside); the fused op by CUDA events."""
     from repro_torch.kernels.fused_presample import fused_presample as fp
-    from repro_torch.kernels.fused_presample.ops import (_pool_keys,
-                                                         _row_score,
-                                                         fused_presample,
+    from repro_torch.kernels.fused_presample.ops import (fused_presample,
                                                          select_pool)
     from repro_torch.kernels.fused_presample.ref import (fused_presample_ref,
                                                          select_pool_ref)
     res = {}
-    for B, T in ((12, 1024), (768, 4096)):
+    # the floor under any one launch: a one-element zero_() (a fill kernel)
+    one = torch.zeros((1,), device="cuda")
+    res["launch floor: one-element zero_()"] = dict(
+        ms=_device_ms(one.zero_, 200), event_loop_ms=_time(one.zero_, 200),
+        bound_ms=_bound(4, 0, F32_FLOPS_PER_S)[0], bound_by="bytes")
+    for B, T, k in ((POOL[0], POOL[1], BATCH), (768, 4096, 256)):
         # enough copies of the inputs to fill the 50 MB L2 cache 2.5 times,
         # called in turn: each launch reads its inputs from HBM (one set,
         # called again and again, is read from L2, faster than the bound)
@@ -1940,28 +2000,21 @@ def time_k2_k3(gen):
                  torch.rand((B, T), generator=gen, device="cuda") >= 0.2)
                 for _ in range(n_sets)]
         turn = iter(range(10 ** 9))
-        k = lambda: _row_score(*sets[next(turn) % n_sets])
-        p = lambda: fp.row_score_math(*sets[next(turn) % n_sets])
-        warm = lambda: _row_score(*sets[0])
-        # g2 and the byte mask read once, the scores written; a multiply-add
-        # a token outside the tensor cores
-        bound_ms, by = _bound(B * T * 5 + B * 4, 2 * B * T, F32_FLOPS_PER_S)
-        res[f"K2 ({B}, {T})"] = dict(
-            ms=_device_ms(k, 200), plain_ms=_device_ms(p, 50),
-            l2_warm_ms=_device_ms(warm, 200), event_loop_ms=_time(k, 200),
-            plain_event_loop_ms=_time(p, 50), bound_ms=bound_ms, bound_by=by)
+        kern = lambda: fp.pool_select_cuda(*sets[next(turn) % n_sets], 77, k)
+        plain = lambda: fp.pool_select_plain(*sets[next(turn) % n_sets], 77,
+                                             k)
+        warm = lambda: fp.pool_select_cuda(*sets[0], 77, k)
+        # g2 (4 B) and the mask byte read once a token; the scores and keys
+        # (B each), the k winners' idx (8 B), probs and w, 1/sum and thr
+        # written; a multiply-add a token, ~40 f32 ops a row for the key
+        bound_ms, by = _bound(B * T * 5 + B * 8 + k * 16 + 8,
+                              2 * B * T + 40 * B, F32_FLOPS_PER_S)
+        res[f"pool_select ({B}, {T}) k {k}"] = dict(
+            ms=_device_ms(kern, 200), plain_ms=_device_ms(plain, 50),
+            l2_warm_ms=_device_ms(warm, 200), event_loop_ms=_time(kern, 200),
+            plain_event_loop_ms=_time(plain, 50), bound_ms=bound_ms,
+            bound_by=by)
         del sets
-    for B in (12, 768):
-        s, inv = _k3_inputs(B, gen)
-        k, p = (lambda: _pool_keys(s, 77, inv)), \
-            (lambda: fp.pool_keys_plain(s, 77, inv))
-        # scores and 1/Σs read, keys written; ~40 ops a row (two fmix32
-        # rounds, the uniform, a log, a multiply, a divide)
-        bound_ms, by = _bound(B * 8 + 4, 40 * B, F32_FLOPS_PER_S)
-        res[f"K3 ({B},)"] = dict(
-            ms=_device_ms(k, 200), plain_ms=_device_ms(p, 50),
-            event_loop_ms=_time(k, 200), plain_event_loop_ms=_time(p, 50),
-            bound_ms=bound_ms, bound_by=by)
     B, T, V = POOL
     k = BATCH
     z, y, rows = _fused_pool(gen)
@@ -1969,7 +2022,9 @@ def time_k2_k3(gen):
     sc = fused_presample(z, y, rows, ctx, k=k)[3]
     sk, sp = (lambda: select_pool(sc, ctx, k=k)), \
         (lambda: select_pool_ref(sc, ctx, k=k))
-    bound_ms, by = _bound(B * 4 + k * 20 + 4, 60 * B, F32_FLOPS_PER_S)
+    # the scores read; the keys, the k winners' idx, probs, w, 1/sum and
+    # thr written; ~40 f32 ops a row
+    bound_ms, by = _bound(B * 8 + k * 16 + 8, 40 * B, F32_FLOPS_PER_S)
     res[f"select_pool ({B},) k {k}"] = dict(
         ms=_device_ms(sk, 100), plain_ms=_device_ms(sp, 50),
         event_loop_ms=_time(sk, 100), plain_event_loop_ms=_time(sp, 50),
@@ -1995,15 +2050,20 @@ def time_k2_k3(gen):
                                           8 * z.numel(), F32_FLOPS_PER_S)[0],
         bound_by="bytes")
     for name, r in res.items():
-        log(f"[timing] {name}: {r['ms']:.5f} ms ("
-            + ("device" if "event_loop_ms" in r else "CUDA events")
-            + (f"), plain {r['plain_ms']:.5f} ms" if "plain_ms" in r else ")")
-            + f", bound {r['bound_ms']:.6f} ms ({r['bound_by']})"
-            + (f"; CUDA events around a loop of calls {r['event_loop_ms']:.5f}"
-               f" ms, plain {r['plain_event_loop_ms']:.5f} ms"
-               if "event_loop_ms" in r else "")
-            + (f"; the same inputs every launch (L2-warm) "
-               f"{r['l2_warm_ms']:.5f} ms" if "l2_warm_ms" in r else ""))
+        line = (f"[timing] {name}: {r['ms']:.5f} ms ("
+                + ("device" if "event_loop_ms" in r else "CUDA events") + ")")
+        if "plain_ms" in r:
+            line += f", plain {r['plain_ms']:.5f} ms"
+        line += f", bound {r['bound_ms']:.6f} ms ({r['bound_by']})"
+        if "event_loop_ms" in r:
+            line += (f"; CUDA events around a loop of calls "
+                     f"{r['event_loop_ms']:.5f} ms")
+        if "plain_event_loop_ms" in r:
+            line += f", plain {r['plain_event_loop_ms']:.5f} ms"
+        if "l2_warm_ms" in r:
+            line += (f"; the same inputs every launch (L2-warm) "
+                     f"{r['l2_warm_ms']:.5f} ms")
+        log(line)
     del z, y, rows, sc, zf, yf
     gc.collect()
     torch.cuda.empty_cache()
@@ -2046,20 +2106,23 @@ def main():
                     replaces="src/repro/kernels/ce_score/ce_score.py:198",
                     held_by="phase 14 (K1) and 17 (cell D, against "
                             "'fused')"),
-               dict(name="row_score", route="cuda",
-                    builds=[(fp.LIB_K2, fp.SOURCES_K2)],
-                    source=csrc.format("fused_presample", "row_score.cu"),
+               dict(name="pool_select (K2 row_score)", route="cuda",
+                    builds=[(fp.LIB, fp.SOURCES)],
+                    source=csrc.format("fused_presample", "pool_select.cu"),
                     replaces=fp_tpu.format(50),
-                    held_by="phase 19 (K2, and the fused op against "
-                            "fused_presample_ref) and 21 (cell E's op "
-                            "against sample_stats)"),
-               dict(name="pool_keys", route="cuda",
-                    builds=[(fp.LIB_K3, fp.SOURCES_K3)],
-                    source=csrc.format("fused_presample", "pool_keys.cu"),
+                    held_by="phase 19 (scores against row_score_math, two "
+                            "launches the same bits, the fused op against "
+                            "fused_presample_ref), 21 (cell E's op: one "
+                            "launch, scores against sample_stats) and 22 "
+                            "(times)"),
+               dict(name="pool_select (K3 pool_keys)", route="cuda",
+                    builds=[],       # the same library as the row above
+                    source=csrc.format("fused_presample", "pool_select.cu"),
                     replaces=fp_tpu.format(108),
-                    held_by="phase 19 (K3 keys against the plain version's, "
-                            "the fused op against fused_presample_ref) and "
-                            "21 (cell E's op against the host race)")]
+                    held_by="phase 19 (keys bitwise pool_keys_plain on the "
+                            "kernel's scores and 1/sum, idx = _bottom_k of "
+                            "its keys, weights), 21 (cell E's op against the "
+                            "host race) and 22 (times)")]
 
     smi = card()
     libs = build_all(kernels)
@@ -2086,10 +2149,10 @@ def main():
     k1_launches, cell_d = run_cell_d()
     k5_t = time_k5(gen)
     k1_t = time_k1(gen)
-    k23 = check_k2_k3(gen)
+    ps = check_pool_select(gen)
     tiny_presample = check_presample_lm_tiny()
     e_rows, e_op, e_total, e_profile, k5_cell_e = run_cell_e(out)
-    k23_t = time_k2_k3(gen)
+    ps_t = time_pool_select(gen)
 
     def entry(i, **kw):
         k = kernels[i]
@@ -2106,6 +2169,16 @@ def main():
     def k5_worst(kernel):
         return max(c["max_abs_err"] for c in k5_cases.values()
                    if c["kernel"] == kernel)
+    ps_key = f"pool_select ({POOL[0]}, {POOL[1]}) k {BATCH}"
+    ps_cell_e = {k: ps_t[ps_key][k]
+                 for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
+    ps_common = dict(
+        timed_by="device activity (torch.profiler)",
+        timed_at=f"cell E's pool {ps_key}: one launch computes K2, K3 and "
+                 "the selection; prod's pool, select_pool, the op and the "
+                 "launch floor in by_shape",
+        launch_floor_ms=ps_t["launch floor: one-element zero_()"]["ms"],
+        two_launches_same_bits=ps["two_launches_same_bits"], by_shape=ps_t)
     line = {"kernels": [
         entry(0, launches=launches, max_abs_err=err, ms=ms,
               plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
@@ -2155,23 +2228,14 @@ def main():
               library_ms=None, launches_by_path={
                   "cell D score": k1_launches,
                   "cell E fused_presample op": e_op["k1"]}),
-        entry(4, launches=e_op["k2"], max_abs_err=k23["k2_max_abs_err"],
-              max_rel_err=k23["k2_max_rel_err"], **{
-                  k: k23_t["K2 (12, 1024)"][k]
-                  for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
-              library_ms=None, timed_by="device activity (torch.profiler)",
-              timed_at="cell E's pool (12, 1024); prod's in by_shape",
-              by_shape={k: v for k, v in k23_t.items()
-                        if k.startswith("K2")}),
-        entry(5, launches=e_op["k3"], max_abs_err=k23["k3_max_abs_err"],
-              max_rel_err=k23["k3_max_rel_err"],
-              bitwise=k23["k3_bitwise"], **{
-                  k: k23_t["K3 (12,)"][k]
-                  for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
-              library_ms=None, timed_by="device activity (torch.profiler)",
-              timed_at="cell E's pool, B = 12; B = 768 in by_shape",
-              by_shape={k: v for k, v in k23_t.items()
-                        if k.startswith("K3")})]}
+        entry(4, launches=e_op["pool_select"],
+              max_abs_err=ps["k2_max_abs_err"],
+              max_rel_err=ps["k2_max_rel_err"], **ps_cell_e,
+              library_ms=None, **ps_common),
+        entry(5, launches=e_op["pool_select"],
+              max_abs_err=ps["k3_max_abs_err"], bitwise=ps["k3_bitwise"],
+              select_max_rel_err=ps["select_max_rel_err"], **ps_cell_e,
+              library_ms=None, **ps_common)]}
     loaded = check_built_once(libs)
     ok = {"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
@@ -2181,7 +2245,7 @@ def main():
          "history_steps": hrows, "sharded_vs_f64_loop": vs_loop,
          "k5_cases": k5_cases, "serve_lm_tiny_err": tiny_err,
          "cell_c": cell_c, "cell_c_vs_plain": c_vs_plain, "cell_d": cell_d,
-         "k2_k3": k23, "k2_k3_timing": k23_t,
+         "pool_select": ps, "pool_select_timing": ps_t,
          "presample_lm_tiny": tiny_presample,
          "cell_e_steps": e_rows, "cell_e_op": e_op, "cell_e_total_s": e_total,
          "cell_e_profile": e_profile, "libraries_loaded": loaded,

@@ -1,20 +1,22 @@
-"""K2 and K3 on Hopper: the fused presample op's row scores and pool race
-keys, hand-written CUDA.
+"""K2 and K3 on Hopper: the presample pool's row scores, race keys and the
+selection they feed, as one hand-written CUDA launch.
 
-Binds ``csrc/row_score.cu`` (K2, replacing the TPU kernel
-``row_score_pallas`` of ``repro/kernels/fused_presample/fused_presample.py``)
-and ``csrc/pool_keys.cu`` (K3, replacing ``pool_keys_pallas``; its hash is
-``topk_keys/csrc/race_hash.cuh``, shared with K6). The libraries are
-compiled by ``repro_torch.kernels.build`` at the first launch. The wrappers
-check what the kernels take, allocate the outputs, launch on PyTorch's
-current stream and raise if a launch fails: there is no fallback here
-(``ops.select_pool`` and ``ops.fused_presample`` pick the plain versions,
-``row_score_math`` and ``pool_keys_math`` below, only for CPU tensors or
+Binds ``csrc/pool_select.cu``, which replaces the TPU kernels
+``row_score_pallas`` (K2) and ``pool_keys_pallas`` (K3) of
+``repro/kernels/fused_presample/fused_presample.py`` and the XLA tail of the
+reference's ``_select_pool`` (``repro/kernels/fused_presample/ops.py``): row
+scores → Σs → race keys → bottom-(k+1) → Horvitz–Thompson weights. Its hash
+is ``topk_keys/csrc/race_hash.cuh``, shared with K6. The library is compiled
+by ``repro_torch.kernels.build`` at the first launch and its entry point
+resolved and typed once per process. The wrappers check what the kernel
+takes, allocate the outputs, launch on PyTorch's current stream and raise if
+the launch fails: there is no fallback here (``ops.select_pool`` and
+``ops.fused_presample`` take the plain versions, ``pool_select_plain`` and
+``pool_select_scores_plain`` below, only for CPU tensors or
 ``interpret=True``).
 
-``row_score_launches`` and ``pool_keys_launches`` count the launches;
-``chip_smoke.py`` zeroes them around a main path to show the path went
-through the kernels.
+``pool_select_launches`` counts the launches; ``chip_smoke.py`` zeroes it
+around a main path to show the path went through the kernel.
 """
 import ctypes
 from pathlib import Path
@@ -23,16 +25,17 @@ import torch
 from torch import Tensor
 
 from repro_torch.kernels.fused_presample.race import race_uniforms
+from repro_torch.kernels.topk_keys.ops import _bottom_k
 
 _CSRC = Path(__file__).with_name("csrc")
-LIB_K2 = "row_score"                    # K2's library
-SOURCES_K2 = (_CSRC / "row_score.cu",)
-LIB_K3 = "pool_keys"                    # K3's library
-SOURCES_K3 = (_CSRC / "pool_keys.cu",
-              _CSRC.parents[1] / "topk_keys" / "csrc" / "race_hash.cuh")
+LIB = "pool_select"
+SOURCES = (_CSRC / "pool_select.cu",
+           _CSRC.parents[1] / "topk_keys" / "csrc" / "race_hash.cuh")
+SMEM_WINNERS = 1024   # pool_select.cu's kSmemWin: above it, sort in scratch
 
-row_score_launches = 0
-pool_keys_launches = 0
+pool_select_launches = 0
+_launch_fn = None
+_counters = {}        # (device index, stream) -> the kernel's zeroed counter
 
 
 def row_score_math(g2, mask):
@@ -43,7 +46,7 @@ def row_score_math(g2, mask):
 
 
 def pool_keys_math(scores, ids, ctx, inv_total):
-    """The per-row race key: u from the (row, ctx) counter hash, g =
+    """The per-row key: u from the (row, ctx) counter hash, g =
     s·(1/Σs), key = −log(u)/max(g, 1e-20); f32. ``ids`` are the rows as
     int64 holding uint32 values; ``inv_total`` a (1,) f32 tensor or a
     float32 value."""
@@ -60,22 +63,59 @@ def pool_keys_plain(scores, ctx, inv_total):
     return torch.where(scores < 0, torch.inf, keys)
 
 
-def _k2_lib():
-    from repro_torch.kernels import build
-    fn = build.load(LIB_K2, SOURCES_K2).row_score_launch
-    p = ctypes.c_void_p
-    fn.argtypes = [p, p, ctypes.c_longlong, ctypes.c_int, p, p]
-    fn.restype = ctypes.c_int
-    return fn
+def pool_select_scores_plain(scores, ctx, k):
+    """The kernel's plain version from given (B,) scores (pads as −1):
+    Σs → ``pool_keys_plain`` → ``_bottom_k`` → weights. Returns the
+    kernel's seven outputs ``(scores, inv_total, keys, idx, probs, w,
+    thr)``: inv_total (1,) = 1/max(Σs, 1e-20); keys (B,); the k winners
+    (int64, ascending key, ties to the lower row), their s/total and HT
+    weights 1/(B·max(π, 1e-30)), π = 1 − exp(−probs·thr); thr (0-d) the
+    (k+1)-th key. ``k >= B``: every row, weights 1/B, thr +inf."""
+    B = scores.shape[0]
+    scores = scores.to(torch.float32)
+    dev = scores.device
+    total = torch.clamp(scores.sum(), min=1e-20)
+    inv_total = (1.0 / total).reshape(1)
+    keys = pool_keys_plain(scores, ctx, inv_total)
+    if k >= B:
+        return (scores, inv_total, keys,
+                torch.arange(B, dtype=torch.int64, device=dev),
+                scores / total,
+                torch.full((B,), 1.0 / max(B, 1), dtype=torch.float32,
+                           device=dev),
+                torch.tensor(float("inf"), device=dev))
+    vals, slots = _bottom_k(keys, k + 1)
+    thr = vals[k]
+    idx = slots[:k]
+    return (scores, inv_total, keys, idx,
+            *ht_weights(scores, total, idx, thr), thr)
 
 
-def _k3_lib():
-    from repro_torch.kernels import build
-    fn = build.load(LIB_K3, SOURCES_K3).pool_keys_launch
-    p = ctypes.c_void_p
-    fn.argtypes = [p, ctypes.c_longlong, ctypes.c_uint, p, p, p]
-    fn.restype = ctypes.c_int
-    return fn
+def ht_weights(scores, total, idx, thr):
+    """The winners' g = s/total and Horvitz–Thompson weights 1/(B·max(π,
+    1e-30)), π = 1 − exp(−g·thr), B = len(scores): the selection's tail."""
+    probs = scores[idx] / total
+    pi = -torch.expm1(-probs * thr)
+    return probs, 1.0 / (scores.shape[0] * torch.clamp(pi, min=1e-30))
+
+
+def pool_select_plain(g2, mask, ctx, k):
+    """The kernel's plain version from per-token stats: ``row_score_math``
+    then ``pool_select_scores_plain`` (same seven outputs)."""
+    return pool_select_scores_plain(row_score_math(g2, mask), ctx, k)
+
+
+def _launcher():
+    global _launch_fn
+    if _launch_fn is None:
+        from repro_torch.kernels import build
+        fn = build.load(LIB, SOURCES).pool_select_launch
+        p, ll = ctypes.c_void_p, ctypes.c_longlong
+        fn.argtypes = [p, p, ll, ll, ctypes.c_int, p, ctypes.c_uint, ll,
+                       p, p, p, p, p, p, p, p, p]
+        fn.restype = ctypes.c_int
+        _launch_fn = fn
+    return _launch_fn
 
 
 def _check(name, t, shape, dtypes):
@@ -86,10 +126,58 @@ def _check(name, t, shape, dtypes):
                          f"got {tuple(t.shape)} {t.dtype} on {t.device}")
 
 
-def row_score_cuda(g2: Tensor, mask: Tensor) -> Tensor:
+def _counter(device, stream):
+    """The kernel's last-block counter for this stream: zeroed once, set
+    back to zero by every launch."""
+    key = (device.index, stream)
+    c = _counters.get(key)
+    if c is None:
+        c = _counters[key] = torch.zeros((1,), dtype=torch.int32,
+                                         device=device)
+    return c
+
+
+def _launch(scores, ctx, k, g2=None, mask=None):
+    global pool_select_launches
+    B = scores.shape[0]
+    k = int(k)
+    if k < 0:
+        raise ValueError(f"k must be >= 0, got {k}")
+    T = 0 if g2 is None else g2.shape[1]
+    if B >= 2 ** 31 or T >= 2 ** 31:
+        raise ValueError(f"need B, T < 2**31, got {B}, {T}")
+    dev = scores.device
+    m = min(k, B)
+    f32 = torch.empty((1 + B + 2 * m + 1,), dtype=torch.float32, device=dev)
+    inv_total, keys, probs, w, thr = f32.split((1, B, m, m, 1))
+    idx = torch.empty((m,), dtype=torch.int64, device=dev)
+    scratch = None
+    if k < B and k + 1 > SMEM_WINNERS:
+        scratch = torch.empty((1 << k.bit_length(),), dtype=torch.int64,
+                              device=dev)
+    vec = g2 is not None and g2.data_ptr() % 16 == 0 \
+        and mask.data_ptr() % 16 == 0
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _launcher()(
+            None if g2 is None else g2.data_ptr(),
+            None if mask is None else mask.data_ptr(), B, T, int(vec),
+            scores.data_ptr(), int(ctx) & 0xFFFFFFFF, k,
+            inv_total.data_ptr(), keys.data_ptr(), idx.data_ptr(),
+            probs.data_ptr(), w.data_ptr(), thr.data_ptr(),
+            None if scratch is None else scratch.data_ptr(),
+            _counter(dev, stream).data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"pool_select launch failed: cudaError {err}")
+    pool_select_launches += 1
+    return scores, inv_total, keys, idx, probs, w, thr.reshape(())
+
+
+def pool_select_cuda(g2: Tensor, mask: Tensor, ctx: int, k: int):
     """g2 (B, T) contiguous f32 per-token ĝ²; mask (B, T) contiguous bool
-    or uint8 (0/1), on the same CUDA device → (B,) f32 row scores."""
-    global row_score_launches
+    or uint8 (0/1), on one CUDA device; ``ctx`` the plan's uint32 hash
+    context; k the rows to select → ``(scores, inv_total, keys, idx, probs,
+    w, thr)`` as ``pool_select_plain`` returns them, from one launch."""
     if g2.dim() != 2:
         raise ValueError(f"g2 must be (B, T), got {tuple(g2.shape)}")
     B, T = g2.shape
@@ -97,38 +185,15 @@ def row_score_cuda(g2: Tensor, mask: Tensor) -> Tensor:
     _check("mask", mask, (B, T), (torch.bool, torch.uint8))
     if mask.device != g2.device:
         raise ValueError("g2 and mask must share one device")
-    if T >= 2 ** 31 or B >= 2 ** 31:
-        raise ValueError(f"need B, T < 2**31, got {B}, {T}")
-    s = torch.empty((B,), dtype=torch.float32, device=g2.device)
-    with torch.cuda.device(g2.device):
-        stream = torch.cuda.current_stream(g2.device).cuda_stream
-        err = _k2_lib()(g2.data_ptr(), mask.view(torch.uint8).data_ptr(), B,
-                        T, s.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"row_score launch failed: cudaError {err}")
-    row_score_launches += 1
-    return s
+    scores = torch.empty((B,), dtype=torch.float32, device=g2.device)
+    return _launch(scores, ctx, k, g2=g2, mask=mask.view(torch.uint8))
 
 
-def pool_keys_cuda(scores: Tensor, ctx: int, inv_total: Tensor) -> Tensor:
-    """scores (B,) contiguous f32 (pads as −1); ``ctx`` the plan's uint32
-    hash context; inv_total (1,) f32 = 1/Σs, on the scores' CUDA device
-    (read there: the launch needs no host value) → race keys (B,) f32,
-    +inf on pads."""
-    global pool_keys_launches
+def pool_select_scores_cuda(scores: Tensor, ctx: int, k: int):
+    """The same launch from given scores (B,) contiguous f32 on a CUDA
+    device (pads as −1): stage 1 is skipped and ``scores`` is returned as
+    given. Outputs as ``pool_select_scores_plain``."""
     if scores.dim() != 1:
         raise ValueError(f"scores must be (B,), got {tuple(scores.shape)}")
     _check("scores", scores, scores.shape, (torch.float32,))
-    _check("inv_total", inv_total, (1,), (torch.float32,))
-    if inv_total.device != scores.device:
-        raise ValueError("scores and inv_total must share one device")
-    keys = torch.empty_like(scores)
-    with torch.cuda.device(scores.device):
-        stream = torch.cuda.current_stream(scores.device).cuda_stream
-        err = _k3_lib()(scores.data_ptr(), scores.shape[0],
-                        int(ctx) & 0xFFFFFFFF, inv_total.data_ptr(),
-                        keys.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"pool_keys launch failed: cudaError {err}")
-    pool_keys_launches += 1
-    return keys
+    return _launch(scores, ctx, k)

@@ -5,12 +5,13 @@
   (``repro_torch.kernels.ce_score.ops.ce_score_block``); each time chunk
   of the pool's logits is scored by one kernel launch, and rows that
   already lost the step's race stop being scored.
-* ``select_pool`` — the race-WOR top-k over a pool's fresh scores: K3's
-  race keys (``fused_presample.pool_keys_cuda``), the bottom-(k+1), and
-  Horvitz–Thompson weights off the (k+1)-th key.
+* ``select_pool`` — the race-WOR top-k over a pool's fresh scores: race
+  keys, the bottom-(k+1), and Horvitz–Thompson weights off the (k+1)-th
+  key, in one launch of ``fused_presample.pool_select_scores_cuda``.
 * ``fused_presample`` — the whole device side of Algorithm 1's presample
-  step: K1 per-token stats → K2 row scores → ``select_pool`` → a gather
-  of the winning rows, with no host synchronisation in between.
+  step: K1 per-token stats, then one ``pool_select`` launch (row scores →
+  Σs → race keys → bottom-(k+1) → weights), then a gather of the winning
+  rows, with no host synchronisation in between.
 
 On CUDA tensors the kernels launch (or raise); the plain versions run
 only for CPU tensors or ``interpret=True``. The selection semantics are
@@ -28,9 +29,9 @@ import torch.nn.functional as F
 from repro_torch.kernels import plain_route
 from repro_torch.kernels.ce_score.ops import ce_score, ce_score_block
 from repro_torch.kernels.fused_presample.fused_presample import (
-    pool_keys_plain, row_score_math)
+    pool_select_cuda, pool_select_plain, pool_select_scores_cuda,
+    pool_select_scores_plain)
 from repro_torch.kernels.fused_presample.race import pool_exponentials
-from repro_torch.kernels.topk_keys.ops import _bottom_k
 
 # per-token ceiling on the paper's ĝ² = ‖softmax(z) − onehot(y)‖₂² < 2: the
 # most a still-unscored supervised token can add to a row's score
@@ -138,25 +139,6 @@ def pruned_pool_score(logits, labels, ctx, *, k, block_b=None, block_t=None,
     return scores, alive, cerun / ntok, stats
 
 
-def _row_score(g2, mask, interpret=None):
-    """K2 on CUDA tensors, its plain version on CPU tensors or when asked."""
-    if plain_route(g2, mask, interpret=interpret):
-        return row_score_math(g2, mask)
-    from repro_torch.kernels.fused_presample.fused_presample import \
-        row_score_cuda
-    return row_score_cuda(g2.to(torch.float32).contiguous(),
-                          mask.to(torch.bool).contiguous())
-
-
-def _pool_keys(scores, ctx, inv_total, interpret=None):
-    """K3 on CUDA tensors, its plain version on CPU tensors or when asked."""
-    if plain_route(scores, inv_total, interpret=interpret):
-        return pool_keys_plain(scores, ctx, inv_total)
-    from repro_torch.kernels.fused_presample.fused_presample import \
-        pool_keys_cuda
-    return pool_keys_cuda(scores.contiguous(), ctx, inv_total)
-
-
 def select_pool(scores, ctx, *, k, interpret=None):
     """Race-WOR top-k over one candidate pool's fresh (B,) scores →
     ``(idx, probs, weights, threshold)``, all tensors on the scores'
@@ -164,25 +146,12 @@ def select_pool(scores, ctx, *, k, interpret=None):
     their HT weights 1/(B·π) with π = 1 − exp(−g·τ*), and τ* the
     (k+1)-th smallest key (0-d f32). Ties break toward the lower row, as
     the reference's ``lax.top_k`` does. ``k >= B`` is the degenerate
-    ratio-1 pool: every row, weights 1/B, threshold +inf, no launch."""
-    B = scores.shape[0]
+    ratio-1 pool: every row, weights 1/B, threshold +inf. On CUDA tensors
+    one ``pool_select`` launch computes it all."""
     scores = scores.to(torch.float32)
-    total = torch.clamp(scores.sum(), min=1e-20)
-    g = scores / total
-    if k >= B:
-        return (torch.arange(B, dtype=torch.int64, device=scores.device), g,
-                torch.full((B,), 1.0 / max(B, 1), dtype=torch.float32,
-                           device=scores.device),
-                torch.tensor(float("inf"), device=scores.device))
-    keys = _pool_keys(scores, ctx, (1.0 / total).reshape(1),
-                      interpret=interpret)
-    vals, slots = _bottom_k(keys, k + 1)
-    thr = vals[k]
-    idx = slots[:k]
-    probs = g[idx]
-    pi = -torch.expm1(-probs * thr)
-    w = 1.0 / (B * torch.clamp(pi, min=1e-30))
-    return idx, probs, w, thr
+    if plain_route(scores, interpret=interpret):
+        return pool_select_scores_plain(scores, ctx, k)[3:]
+    return pool_select_scores_cuda(scores.contiguous(), ctx, k)[3:]
 
 
 def fused_presample(logits, labels, rows, ctx, *, k, block_b=128,
@@ -190,10 +159,10 @@ def fused_presample(logits, labels, rows, ctx, *, k, block_b=128,
     """One pass of the presample step's data side on the device.
 
     logits: (B, T, V) pool logits; labels: (B, T) targets (< 0 =
-    unsupervised: K1 sees them clamped to 0, K2 masks them out, as
-    ``LM.sample_stats`` does); rows: dict of (B, ...) pool tensors to
-    gather the winners from; ctx: the plan's ``selection.hash_context``
-    (uint32); k: rows to select.
+    unsupervised: K1 sees them clamped to 0, the row scores mask them
+    out, as ``LM.sample_stats`` does); rows: dict of (B, ...) pool tensors
+    to gather the winners from; ctx: the plan's
+    ``selection.hash_context`` (uint32); k: rows to select.
 
     Returns ``(sel_rows, idx, weights, scores)``: the k winning rows (dict,
     on the device), their pool rows, HT weights, and the full (B,) score
@@ -201,11 +170,14 @@ def fused_presample(logits, labels, rows, ctx, *, k, block_b=128,
     Forward only: K1 has no gradient."""
     del block_b, block_t, block_v
     V = logits.shape[-1]
-    mask = labels >= 0
+    mask = (labels >= 0).contiguous()
     _, g2 = ce_score(logits.reshape(-1, V),
                      torch.clamp(labels.reshape(-1), min=0).to(torch.int32),
                      interpret=interpret)
-    scores = _row_score(g2.reshape(labels.shape), mask, interpret=interpret)
-    idx, _, w, _ = select_pool(scores, ctx, k=k, interpret=interpret)
+    g2 = g2.reshape(labels.shape)
+    if plain_route(g2, interpret=interpret):
+        scores, _, _, idx, _, w, _ = pool_select_plain(g2, mask, ctx, k)
+    else:
+        scores, _, _, idx, _, w, _ = pool_select_cuda(g2, mask, ctx, k)
     sel = {name: v.index_select(0, idx) for name, v in rows.items()}
     return sel, idx, w, scores

@@ -1,5 +1,5 @@
-// The race's counter hash, shared by the pool keys (K3, pool_keys.cu) and
-// the sharded store's race keys (K6, race_keys.cu).
+// The race's counter hash, shared by the pool selection's keys (K3,
+// pool_select.cu) and the sharded store's race keys (K6, race_keys.cu).
 //
 // Each id i of a plan (a pool row, or a store slot's global id) gets
 //     h = fmix32(fmix32(i * 0x9E3779B9 ^ ctx) + 0x6A09E667)
