@@ -31,6 +31,29 @@ Phases, in order; each raises on failure, so the process exits non-zero:
               step's device time goes, by kernel group and by name, and
               the device's idle share against step 1's unprofiled wall
               time (the full table goes to ``chiprun_out/profile_step.txt``);
+6b. cell A resume — phase 6's run with ``prod``'s checkpoints and
+              telemetry (``obs.enabled``, JSONL under
+              ``chiprun_out/obs/``; ``ckpt_dir`` under ``build/``,
+              ``ckpt_every`` 2, ``keep_ckpts`` 1): it first reads the
+              free disk under ``build/`` and ``MemAvailable`` and fails,
+              with both numbers, unless the disk holds the state once
+              (plus 2 %) and the memory twice (the state is 45 GB: bf16
+              params, f32 master, m and v; the card's machine has 80 GB
+              of disk, not the two states ``keep_ckpts`` 1 holds while it
+              writes the next); then steps 0-1 save ``step_2``;
+              ``Experiment.from_checkpoint`` resumes at 2 and trains 2-3
+              (``step_2`` removed once the resume has read it; ``step_4``
+              saved);
+              every step's rows equal phase 6's, losses to 1e-3 relative
+              (and whether bitwise); counts zeroed just before the resumed
+              fit and read just after (K4 8 and the wgmma K5 28 a step, no
+              mma); a third ``fit`` resumes at the final step and trains,
+              launches and writes nothing (``step_4``'s files keep their
+              size, mtime, inode and manifest); the JSONL holds the
+              ``health.*`` gauges, ``loop.step_s`` and ``loop.h2d_bytes``,
+              finite; the checkpoint's bytes, each save's split (snapshot
+              to host, write, commit) and the restores' wall times beside
+              the card; the directory removed;
 7. timing   — K4 per launch (CUDA events) beside its plain version and its
               bound at the slice's shape;
 8. K6       — ``topk_race_keys`` against its plain version on the card:
@@ -392,6 +415,8 @@ def check_lm_tiny():
             f"{[int(h['sampler_active']) for h in hg]}")
 
 
+CELL_A = {"shape.global_batch": BATCH, "shape.seq_len": 1024,
+          "steps": STEPS, "obs.enabled": False}
 KERNEL_GROUPS = (  # first match wins; names as the profiler reports them
     ("K4 ce_score_block", ("ce_token_kernel", "row_sum_kernel")),
     ("K5 flash_attention", ("flash_fwd_wgmma_kernel", "flash_bf16_kernel",
@@ -412,8 +437,7 @@ def run_slice(out):
     from repro_torch.kernels.flash_attn import flash_attn as k5
     from repro_torch.kernels.topk_keys import topk_keys as k6
     from torch.profiler import ProfilerActivity, profile
-    overrides = {"shape.global_batch": BATCH, "shape.seq_len": 1024,
-                 "steps": STEPS, "obs.enabled": False}
+    overrides = dict(CELL_A)
     log(f"[slice] llama3.2-3b, preset prod, overrides {overrides}")
     log("[slice] cuts from prod: seq_len 4096 -> 1024; global_batch 256 -> "
         f"{BATCH}; steps 1000 -> {STEPS} (step {PROFILED} under "
@@ -430,6 +454,7 @@ def run_slice(out):
         def on_step_start(self, loop, step, b, meta):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
+            self.gids = [int(g) for g in meta.gids]
             if step == PROFILED:
                 self.prof.start()
             self.t0 = time.perf_counter()
@@ -441,7 +466,7 @@ def run_slice(out):
                 self.prof.stop()
             st = loop.exp.sampler.last_prune
             row = dict(step=step, loss=m["loss"], tau_hat=m["presample_tau"],
-                       is_active=m["sampler_active"],
+                       is_active=m["sampler_active"], gids=self.gids,
                        rows_killed=int(st[0]), tiles_skipped=int(st[1]),
                        tiles_total=int(st[2]), step_s=wall,
                        profiled=step == PROFILED,
@@ -473,6 +498,191 @@ def run_slice(out):
     gc.collect()
     torch.cuda.empty_cache()
     return launches, k5_by, hook.rows, breakdown
+
+
+CKPT_DIR = ROOT / "build" / "ckpt_cell_a"   # listed in .gitignore
+OBS_DIR = ROOT / "chiprun_out" / "obs"
+RESUME_AT = 2
+
+
+def _mem_available():
+    for line in Path("/proc/meminfo").read_text().splitlines():
+        if line.startswith("MemAvailable:"):
+            return int(line.split()[1]) * 1024
+    raise RuntimeError("no MemAvailable in /proc/meminfo")
+
+
+def _step_files(d):
+    """(name, size, mtime, inode) of every file of a checkpoint step, and
+    its manifest's bytes: a rewrite renames a new directory in."""
+    return (sorted((f.name, f.stat().st_size, f.stat().st_mtime_ns,
+                    f.stat().st_ino) for f in d.iterdir()),
+            (d / "manifest.json").read_bytes())
+
+
+def run_cell_a_resume(straight, smi):
+    """Phase 6b: cell A with ``prod``'s checkpoints and telemetry."""
+    import shutil
+    from repro_torch.api import Experiment, Hook, build_run
+    from repro_torch.kernels.ce_score import ce_score as k4
+    from repro_torch.kernels.flash_attn import flash_attn as k5
+    overrides = dict(CELL_A, **{"obs.enabled": True, "obs.dir": str(OBS_DIR),
+                                "ckpt_dir": str(CKPT_DIR),
+                                "ckpt_every": RESUME_AT, "keep_ckpts": 1})
+    log(f"[resume] llama3.2-3b, preset prod, overrides {overrides}; cuts "
+        "from prod as phase 6's, but telemetry on (JSONL) and checkpoints "
+        f"every {RESUME_AT} steps, the last kept")
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    shutil.rmtree(OBS_DIR, ignore_errors=True)
+
+    class Rec(Hook):
+        def __init__(self):
+            self.rows, self.t_start = [], None
+
+        def on_loop_start(self, loop, start, steps):
+            torch.cuda.synchronize()
+            self.t_start = time.perf_counter()
+            self.start = start
+
+        def on_step_start(self, loop, step, b, meta):
+            self.gids = [int(g) for g in meta.gids]
+
+        def on_step_end(self, loop, step, m):
+            self.rows.append(dict(step=step, loss=m["loss"], gids=self.gids,
+                                  is_active=m["sampler_active"]))
+
+    exp = Experiment(build_run("llama3.2-3b", preset="prod",
+                               overrides=overrides))
+    n = sum(p.numel() for p in exp.lm.parameters())
+    # the params in their dtype, then f32 master, m and v
+    state_bytes = sum(p.numel() * p.element_size()
+                      for p in exp.lm.parameters()) + 3 * 4 * n
+    disk, mem = shutil.disk_usage(CKPT_DIR).free, _mem_available()
+    log(f"[resume] {n} parameters: a state of {state_bytes / 1e9:.3f} GB; "
+        f"free disk under build/ {disk / 1e9:.3f} GB (needs the state once "
+        f"plus 2 %: {1.02 * state_bytes / 1e9:.3f}), MemAvailable "
+        f"{mem / 1e9:.3f} GB (needs twice the state: "
+        f"{2 * state_bytes / 1e9:.3f}) | {smi}")
+    if disk < 1.02 * state_bytes or mem < 2 * state_bytes:
+        raise RuntimeError(
+            f"too little room for cell A's checkpoint: free disk "
+            f"{disk} B against {int(1.02 * state_bytes)} B, MemAvailable "
+            f"{mem} B against {2 * state_bytes} B")
+
+    # 1. steps 0 and 1, saving step_2
+    first = Rec()
+    exp.fit(steps=RESUME_AT, hooks=[first])
+    save1 = dict(exp.ckpt.last_save)
+    assert exp.ckpt.steps() == [RESUME_AT], exp.ckpt.steps()
+    del exp
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 2. resume at 2 from the manifest and train 2 and 3; step_2 is removed
+    # once the restore has read it, so the disk holds one checkpoint
+    class Drop(Hook):
+        def on_loop_start(self, loop, start, steps):
+            shutil.rmtree(CKPT_DIR / f"step_{RESUME_AT}")
+
+    resumed = Rec()
+    t0 = time.perf_counter()
+    exp = Experiment.from_checkpoint(CKPT_DIR)
+    built = time.perf_counter() - t0
+    k4.launches = 0
+    _k5_zero(k5)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    hist = exp.fit(steps=STEPS, hooks=[resumed, Drop()])[1]
+    torch.cuda.synchronize()
+    launches, k5_by = k4.launches, dict(k5.launches_by_kernel)
+    restore_s = resumed.t_start - t1
+    save2 = dict(exp.ckpt.last_save)
+    n_run = STEPS - RESUME_AT
+    assert resumed.start == RESUME_AT and len(hist) == n_run, hist
+    assert exp.ckpt.steps() == [STEPS], exp.ckpt.steps()
+
+    # 3. the same rows as phase 6's straight run, losses to 1e-3 relative
+    bitwise = True
+    for got, want in zip(first.rows + resumed.rows, straight):
+        assert got["step"] == want["step"]
+        assert got["gids"] == want["gids"], (got, want)
+        rel = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+        assert rel <= 1e-3, (got, want)
+        bitwise &= got["loss"] == want["loss"]
+    log(f"[resume] steps 0-{STEPS - 1} (0-{RESUME_AT - 1} before the save, "
+        f"{RESUME_AT}-{STEPS - 1} resumed): the plans of phase 6's straight "
+        f"run; losses {[r['loss'] for r in first.rows + resumed.rows]} "
+        f"against {[r['loss'] for r in straight]}, bitwise: {bitwise}")
+
+    # 4. the resumed steps ran the cell's kernels
+    log(f"[resume] resumed steps: K4 launches {launches} "
+        f"({launches / n_run:g} per step), K5 {k5_by}")
+    assert launches == 8 * n_run, "K4 was not launched 8 times per step"
+    assert k5_by == {"wgmma": N_LAYERS * n_run, "mma": 0}, \
+        "the wgmma K5 was not launched once per layer of each pool's scoring"
+
+    # 5. resumed at the final step: nothing trained, step_4 untouched
+    step_dir = CKPT_DIR / f"step_{STEPS}"
+    before = _step_files(step_dir)
+    k4.launches = 0
+    _k5_zero(k5)
+    again = Rec()
+    t2 = time.perf_counter()
+    hist = exp.fit(steps=STEPS, hooks=[again])[1]
+    torch.cuda.synchronize()
+    restore2_s = time.perf_counter() - t2
+    assert hist == [] and again.rows == [] and again.start == STEPS
+    assert k4.launches == 0 and k5.launches == 0
+    assert _step_files(step_dir) == before, "step_4 was rewritten"
+    assert exp.ckpt.steps() == [STEPS]
+    on_disk = sum(f.stat().st_size for f in step_dir.iterdir())
+    del exp, hist
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 6. the JSONL telemetry
+    recs = [json.loads(line) for f in sorted(OBS_DIR.glob("obs-p0.*.jsonl"))
+            for line in f.read_text().splitlines()]
+    ends = [r["metrics"] for r in recs if r["event"] == "loop_end"]
+    assert len(ends) == 3, [r["event"] for r in recs]
+    health = {}
+    for i, m in enumerate(ends[:2]):   # the two fits that trained
+        names = [k for k in m if k.startswith("health.")]
+        assert {"health.tau", "health.variance_gain", "health.speedup_est",
+                "health.is_active"} <= set(names), sorted(m)
+        for k in names + ["loop.h2d_bytes"]:
+            assert math.isfinite(m[k]), (k, m[k])
+        hist_s = m["loop.step_s"]
+        # the registry is the process's: counts add up over the fits
+        assert hist_s["count"] == RESUME_AT * (i + 1), hist_s
+        assert math.isfinite(hist_s["sum"])
+        health = {k: m[k] for k in sorted(names)}
+    log(f"[resume] JSONL: {len(recs)} records in "
+        f"{OBS_DIR.relative_to(ROOT)}; the last fit that trained: {health}, "
+        f"loop.step_s {ends[1]['loop.step_s']['sum']:.4f} s over "
+        f"{ends[1]['loop.step_s']['count']} steps, loop.h2d_bytes "
+        f"{ends[1]['loop.h2d_bytes']}")
+
+    # 7. the numbers, beside the card
+    out = dict(state_bytes=state_bytes, ckpt_bytes_on_disk=on_disk,
+               free_disk=disk, mem_available=mem, save_step_2=save1,
+               save_step_4=save2, build_from_checkpoint_s=built,
+               restore_s=restore_s, restore_at_final_step_s=restore2_s,
+               losses_bitwise=bitwise, k4_launches=launches,
+               k5_launches_by_kernel=k5_by, health=health,
+               steps=first.rows + resumed.rows, card=smi)
+    for tag, sv in (("step_2", save1), ("step_4", save2)):
+        log(f"[resume] save {tag}: snapshot to host {sv['snapshot_s']:.2f} "
+            f"s, write {sv['write_s']:.2f} s, commit {sv['commit_s']:.3f} "
+            f"s, {sv['bytes'] / 1e9:.3f} GB | {smi}")
+    log(f"[resume] checkpoint on disk {on_disk / 1e9:.3f} GB; resume "
+        f"(fresh state + restore of step_2) {restore_s:.2f} s after "
+        f"{built:.2f} s to build the Experiment; resume at the final step "
+        f"(restore of step_4, nothing trained) {restore2_s:.2f} s | {smi}")
+
+    # 8. the directory goes
+    shutil.rmtree(CKPT_DIR)
+    return out
 
 
 def _device_time(prof):
@@ -1854,6 +2064,7 @@ def run_cell_e(out):
         def on_step_start(self, loop, step, b, meta):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
+            self.gids = [int(g) for g in meta.gids]
             if step == PROFILED:
                 self.prof.start()
             self.t0 = time.perf_counter()
@@ -2134,6 +2345,7 @@ def main():
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     launches, k5_cell_a, rows, breakdown = run_slice(out)
+    resume = run_cell_a_resume(rows, smi)
     ms, plain_ms, bound_ms, by = time_k4(gen)
     store = _warm_store()
     k6_abs, k6_rel = check_k6(store)
@@ -2161,7 +2373,9 @@ def main():
     pre, dec = k5_t["prefill"], k5_t["decode"]
     k5_by_path = {"cell C serve": cell_c["k5_launches_by_kernel"],
                   "cell D score": cell_d["k5_launches_by_kernel"],
-                  "cell A steps": k5_cell_a, "cell E steps": k5_cell_e}
+                  "cell A steps": k5_cell_a,
+                  "cell A resumed steps": resume["k5_launches_by_kernel"],
+                  "cell E steps": k5_cell_e}
 
     def k5_paths(kernel):
         return {path: by[kernel] for path, by in k5_by_path.items()}
@@ -2182,7 +2396,9 @@ def main():
     line = {"kernels": [
         entry(0, launches=launches, max_abs_err=err, ms=ms,
               plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
-              library_ms=None),
+              library_ms=None, launches_by_path={
+                  "cell A steps": launches,
+                  "cell A resumed steps": resume["k4_launches"]}),
         entry(1, launches=k6_launches, max_abs_err=k6_abs,
               max_rel_err=k6_rel, ms=k6_t[0], plain_ms=k6_t[1],
               bound_ms=k6_t[2], bound_by=k6_t[3], library_ms=None,
@@ -2242,6 +2458,7 @@ def main():
                                  "count": torch.cuda.device_count()}}
     (out / "chip_smoke.json").write_text(json.dumps(
         {"card": smi, "steps": rows, "profile": breakdown,
+         "cell_a_resume": resume,
          "history_steps": hrows, "sharded_vs_f64_loop": vs_loop,
          "k5_cases": k5_cases, "serve_lm_tiny_err": tiny_err,
          "cell_c": cell_c, "cell_c_vs_plain": c_vs_plain, "cell_d": cell_d,

@@ -1,5 +1,11 @@
 """Declarative configs for ``repro_torch.api`` (``repro.api.config``).
 
+* **Lossless serialization** — ``to_dict``/``from_dict`` (and the json
+  twins) round-trip a ``RunConfig`` exactly, including the nested
+  ``ModelConfig``. The training loop writes the serialized config into
+  every checkpoint's manifest, so a run is rebuilt from its checkpoint
+  alone (``Experiment.from_checkpoint``); the dict is the reference's, so
+  a checkpoint's config crosses between the two packages.
 * **Dotted CLI overrides** — ``parse_cli``/``apply_overrides`` turn
   ``--imp.presample_ratio=5 --shape.seq_len=1024 --steps 3`` into
   ``dataclasses.replace`` calls down the config tree. Every leaf field is
@@ -7,25 +13,93 @@
   keys are hard ``ConfigError``s.
 * **Named presets** — ``smoke`` (the tiny one-device cell),
   ``paper_cifar`` (the paper's single-output classification cell, with
-  the ``cls`` source) and ``prod`` (the fused, survival-pruned training
-  cell).
-
-The lossless dict/json serialization of a ``RunConfig`` waits for the
-checkpoint slice.
+  the ``cls`` source), ``prod`` (the fused, survival-pruned training
+  cell) and ``demo`` (the checkpointed CPU training demo).
 """
 from __future__ import annotations
 
 import dataclasses
+import json
 
 from repro_torch.configs import get_config
-from repro_torch.configs.base import (ISConfig, ModelConfig, ObsConfig,
-                                      OptimConfig, RunConfig, ShapeConfig,
+from repro_torch.configs.base import (DataConfig, FaultsConfig, ISConfig,
+                                      MLAConfig, ModelConfig, MoEConfig,
+                                      ObsConfig, OptimConfig, RunConfig,
+                                      RuntimeConfig, SSMConfig,
+                                      SamplerConfig, Segment, ShapeConfig,
                                       reduced)
 
 
 class ConfigError(ValueError):
     """A config key/value the dataclass tree cannot represent (unknown
     field, nested path into a leaf, uncoercible value, unknown preset)."""
+
+
+# ---------------------------------------------------------------------------
+# RunConfig <-> dict/json (lossless)
+# ---------------------------------------------------------------------------
+# Nested dataclass-typed fields, per owner class (explicit, so decoding
+# never depends on resolving the annotation strings).
+_NESTED = {
+    RunConfig: {"model": ModelConfig, "shape": ShapeConfig,
+                "optim": OptimConfig, "imp": ISConfig,
+                "sampler": SamplerConfig, "data": DataConfig,
+                "obs": ObsConfig, "runtime": RuntimeConfig},
+    ModelConfig: {"moe": MoEConfig, "mla": MLAConfig, "ssm": SSMConfig},
+    RuntimeConfig: {"faults": FaultsConfig},
+}
+
+
+def _encode(x):
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return {f.name: _encode(getattr(x, f.name))
+                for f in dataclasses.fields(x)}
+    if isinstance(x, (tuple, list)):
+        return [_encode(v) for v in x]
+    return x
+
+
+def _decode(cls, d):
+    if not isinstance(d, dict):
+        raise ConfigError(f"expected a dict for {cls.__name__}, got {d!r}")
+    names = {f.name for f in dataclasses.fields(cls)}
+    unknown = set(d) - names
+    if unknown:
+        raise ConfigError(f"unknown {cls.__name__} keys {sorted(unknown)}; "
+                          f"valid: {sorted(names)}")
+    nested = _NESTED.get(cls, {})
+    kw = {}
+    for f in dataclasses.fields(cls):
+        if f.name not in d:
+            continue
+        v = d[f.name]
+        if f.name in nested:
+            kw[f.name] = _decode(nested[f.name], v)
+        elif cls is ModelConfig and f.name == "segments":
+            kw[f.name] = tuple(_decode(Segment, s) for s in v)
+        elif cls is Segment and f.name == "pattern":
+            kw[f.name] = tuple(v)
+        else:
+            kw[f.name] = v
+    return cls(**kw)
+
+
+def to_dict(run: RunConfig) -> dict:
+    """``RunConfig`` -> plain JSON-able dict (lossless; see ``from_dict``)."""
+    return _encode(run)
+
+
+def from_dict(d: dict) -> RunConfig:
+    """Inverse of ``to_dict``: ``from_dict(to_dict(run)) == run``."""
+    return _decode(RunConfig, d)
+
+
+def to_json(run: RunConfig) -> str:
+    return json.dumps(to_dict(run), indent=2, sort_keys=True)
+
+
+def from_json(s: str) -> RunConfig:
+    return from_dict(json.loads(s))
 
 
 # ---------------------------------------------------------------------------
@@ -158,6 +232,10 @@ def get_preset(name: str):
     return PRESETS[name]
 
 
+def list_presets() -> list:
+    return sorted(PRESETS)
+
+
 @register_preset("smoke", "tiny shape, reduced model, 20 steps, 1 device (CI)")
 def _smoke(model: ModelConfig) -> RunConfig:
     return RunConfig(
@@ -193,10 +271,22 @@ def _prod(model: ModelConfig) -> RunConfig:
         # within the mode; kernels.prune.* counters carry the receipt)
         imp=ISConfig(enabled=True, presample_ratio=3,
                      presample_impl="fused", score_prune="conservative"),
-        # production runs are observable by default (the registry; its
-        # sinks are not ported yet)
+        # production runs are observable by default: JSONL telemetry
+        # (loop spans, data-plane stages, store counters, IS-health
+        # gauges) every 10 accepted steps
         obs=ObsConfig(enabled=True),
         steps=1000, ckpt_every=100)
+
+
+@register_preset("demo", "CPU training demo: seq 256, b=16, checkpointed")
+def _demo(model: ModelConfig) -> RunConfig:
+    return RunConfig(
+        model=model,
+        shape=ShapeConfig("train", seq_len=256, global_batch=16, kind="train"),
+        optim=OptimConfig(name="adamw", lr=3e-4, weight_decay=0.01),
+        imp=ISConfig(enabled=True, presample_ratio=3),
+        steps=300, remat=True,
+        ckpt_dir="/tmp/repro_ckpt", ckpt_every=50)
 
 
 def build_run(arch=None, preset=None, overrides=None, model=None) -> RunConfig:

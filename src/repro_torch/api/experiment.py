@@ -1,7 +1,8 @@
 """The ``Experiment`` facade (``repro.api.experiment``).
 
 An ``Experiment`` wires model / data source / sampler / scoring engine /
-optimizer together from one ``RunConfig`` and runs the ``TrainLoop``:
+optimizer / checkpointing together from one ``RunConfig`` and runs the
+``TrainLoop``:
 
     import repro_torch
     state, history = repro_torch.train("llama3.2-3b", preset="prod",
@@ -12,18 +13,32 @@ optimizer together from one ``RunConfig`` and runs the ``TrainLoop``:
                                        source="cls")
 
 Everything runs on a CUDA device unless the caller passes ``device="cpu"``
-(as the CPU tests do); with no GPU present the default raises. Meshes,
-checkpoints, straggler handling and the elastic runtime are not ported
-yet.
+(as the CPU tests do); with no GPU present the default raises.
+
+Checkpoints: with ``run.ckpt_dir`` set, ``fit`` resumes from the newest
+committed checkpoint there (``resume_or_init``) and saves every
+``run.ckpt_every`` steps and at the end (``CheckpointHook``), in the
+reference's format, so a checkpoint of either package resumes in the
+other. ``Experiment.from_checkpoint(dir)`` rebuilds the run from the
+config in the checkpoint's manifest. With ``run.obs.enabled``, ``fit``
+installs the IS-health hook first and the telemetry flush last.
+
+Not ported: meshes, the straggler monitor and its ``StragglerHook``, the
+elastic runtime, and the resume onto another host count (the
+reference's ``_resume_resharded``; ``TopologyMismatch`` propagates).
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
 from repro_torch import obs
 from repro_torch.api.config import (ConfigError, apply_overrides, build_run,
-                                    get_preset, parse_cli, truthy)
+                                    from_dict, get_preset, parse_cli, truthy)
+from repro_torch.checkpoint import interop
+from repro_torch.checkpoint.ckpt import Checkpointer
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.core.is_train import StepSpec, build_step, train_state_init
 from repro_torch.data.pipeline import (DataPlane, PipelineState,
@@ -79,9 +94,6 @@ class Experiment:
 
     def __init__(self, run_cfg, source=None, device=None, gate=None,
                  hooks=()):
-        if run_cfg.ckpt_dir:
-            raise ConfigError("checkpointing is not ported yet (ckpt_dir "
-                              "must be unset)")
         self.run = run_cfg
         self.device = resolve_device(device)
         obs.configure(run_cfg.obs)
@@ -89,6 +101,12 @@ class Experiment:
         self.lm = LM(run_cfg.model, device=self.device, generator=gen)
         self.opt = get_optimizer(run_cfg.optim)
         self.source = _make_source(run_cfg, source)
+        # what the manifest records so from_checkpoint can rebuild the
+        # data (a custom source object must be passed again)
+        self.source_spec = source if isinstance(source, str) else (
+            "lm" if source is None else "custom:" + type(source).__name__)
+        self.ckpt = (Checkpointer(run_cfg.ckpt_dir, keep=run_cfg.keep_ckpts)
+                     if run_cfg.ckpt_dir else None)
         self.sampler = make_sampler(run_cfg, self.source,
                                     device=self.device)
         self.engine = ScoreEngine(self.lm, run_cfg)
@@ -126,26 +144,82 @@ class Experiment:
         run = build_run(arch=arch, preset=preset, overrides=flags)
         return cls(run, source=source, device=device, **kw)
 
+    @classmethod
+    def from_checkpoint(cls, ckpt_dir, source=None, device=None, **kw):
+        """Rebuild the run serialized into a checkpoint's manifest
+        (``run_config`` and ``source`` meta, written by every save of
+        either package); ``fit()`` then resumes from that checkpoint."""
+        meta = Checkpointer(ckpt_dir).meta()
+        if "run_config" not in meta:
+            raise ConfigError(f"checkpoint {ckpt_dir} predates the config "
+                              f"manifest (no 'run_config' meta)")
+        if source is None:
+            spec = meta.get("source", "lm")
+            if isinstance(spec, str) and spec.startswith("custom:"):
+                raise ConfigError(
+                    f"checkpoint {ckpt_dir} was trained with a custom data "
+                    f"source ({spec[len('custom:'):]}) that cannot be "
+                    f"rebuilt from the manifest — pass source= explicitly")
+            source = spec
+        run = dataclasses.replace(from_dict(meta["run_config"]),
+                                  ckpt_dir=str(ckpt_dir))
+        return cls(run, source=source, device=device, **kw)
+
     def make_plane(self) -> DataPlane:
         return DataPlane(self.sampler, self.device)
 
-    def resume_or_init(self):
-        """(train state, pipeline state, first step): a fresh start, as
-        checkpoint resume is not ported yet."""
+    def init_state(self):
         return (train_state_init(self.lm, self.opt, self.run.seed),
-                PipelineState(), 0)
+                PipelineState())
+
+    def checkpoint_payload(self, state):
+        """Checkpoint payload: the train state and the score memory."""
+        return {"train": interop.train_payload(state),
+                "sampler": self.sampler.state_dict()}
+
+    def resume_or_init(self):
+        """(train state, pipeline state, first step): from the newest
+        committed checkpoint in ``run.ckpt_dir`` if there is one, else a
+        fresh start."""
+        state, pstate = self.init_state()
+        if not (self.ckpt and self.ckpt.latest_step() is not None):
+            return state, pstate, 0
+        state, step = interop.load_train_state(self.ckpt, state,
+                                               self.run.seed)
+        try:
+            # lenient: a checkpoint of another scheme still warms the
+            # shared score store; scheme-specific extras keep their init
+            samp, _ = self.ckpt.restore(
+                {"sampler": self.sampler.state_dict()}, step=step,
+                strict=False)
+            self.sampler.load_state_dict(samp["sampler"])
+        except (KeyError, ValueError):
+            pass  # another dataset: the sampler starts cold
+        meta = self.ckpt.meta(step)
+        pstate = PipelineState.from_dict(meta.get("pipeline",
+                                                  pstate.as_dict()))
+        return state, pstate, step
 
     def fit(self, steps=None, log_every=None, callback=None, hooks=()):
         """Train via the loop. Returns ``(state, history)``."""
-        from repro_torch.api.hooks import (CallbackHook, LoggingHook,
-                                           MetricsHistoryHook)
+        from repro_torch.api.hooks import (CallbackHook, CheckpointHook,
+                                           LoggingHook, MetricsHistoryHook)
         from repro_torch.api.loop import TrainLoop
         hs = [MetricsHistoryHook()]
+        if self.run.obs.enabled:
+            # IS-health first, so every later hook sees its metrics
+            from repro_torch.obs.health import VarianceGainHook
+            hs.append(VarianceGainHook())
         if log_every:
             hs.append(LoggingHook(every=log_every))
         hs += list(self.default_hooks) + list(hooks)
         if callback is not None:
             hs.append(CallbackHook(callback))
+        hs.append(CheckpointHook())
+        if self.run.obs.enabled:
+            # the flush last: its snapshot holds what every hook recorded
+            from repro_torch.obs.hook import TelemetryHook
+            hs.append(TelemetryHook(self.run.obs))
         return TrainLoop(self, hs).run(steps)
 
 

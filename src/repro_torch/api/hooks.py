@@ -1,6 +1,14 @@
-"""Hooks for the training loop (``repro.api.hooks``, the observers the
-slice needs). A hook subclasses ``Hook`` and overrides the events it
-cares about; the loop calls every hook for every event, in order."""
+"""Hooks for the training loop (``repro.api.hooks``). A hook subclasses
+``Hook`` and overrides the events it cares about; the loop calls every
+hook for every event, in order.
+
+Shipped hooks: ``MetricsHistoryHook`` (the per-step metrics ``fit``
+returns), ``LoggingHook`` (the step log line), ``CallbackHook`` (adapts
+``callback(step, metrics)``) and ``CheckpointHook`` (periodic and final
+checkpoints). The IS-health and telemetry hooks live in
+``repro_torch.obs``. The reference's ``StragglerHook`` waits for the
+straggler monitor, which is not ported yet.
+"""
 from __future__ import annotations
 
 
@@ -17,6 +25,9 @@ class Hook:
         pass
 
     def on_scores_ready(self, loop, step, meta, scores):
+        pass
+
+    def on_checkpoint(self, loop, step, payload):
         pass
 
     def on_loop_end(self, loop, state, history):
@@ -45,9 +56,13 @@ class LoggingHook(Hook):
             return
         tau = metrics.get("tau", metrics.get("presample_tau", 0.0))
         active = metrics.get("is_active", metrics.get("sampler_active", 0.0))
-        self.printer(f"step {step:5d} loss {metrics.get('loss', float('nan')):.4f}"
-                     f" tau {tau:.2f} is {active:.0f} "
-                     f"dt {metrics.get('dt', 0.0):.2f}s", flush=True)
+        line = (f"step {step:5d} loss {metrics.get('loss', float('nan')):.4f}"
+                f" tau {tau:.2f} is {active:.0f} "
+                f"dt {metrics.get('dt', 0.0):.2f}s")
+        if "variance_gain" in metrics:
+            line += (f" vgain {metrics['variance_gain']:.2f}"
+                     f" spd {metrics.get('speedup_est', 0.0):.2f}x")
+        self.printer(line, flush=True)
 
 
 class CallbackHook(Hook):
@@ -59,3 +74,25 @@ class CallbackHook(Hook):
 
     def on_step_end(self, loop, step, metrics):
         self.fn(step, metrics)
+
+
+class CheckpointHook(Hook):
+    """Periodic (every ``run.ckpt_every`` accepted steps) and final
+    checkpoints through ``loop.save_checkpoint``. No-op without a
+    checkpoint directory. Skips the final save when the loop trained zero
+    steps (a resume at the final step must not rewrite the completed
+    run's checkpoint), and when the periodic save already wrote the final
+    step (the reference writes the same state twice there); it then only
+    waits for that write."""
+
+    def on_step_end(self, loop, step, metrics):
+        if loop.exp.ckpt and (step + 1) % loop.exp.run.ckpt_every == 0:
+            loop.save_checkpoint(step + 1)
+
+    def on_loop_end(self, loop, state, history):
+        if not (loop.exp.ckpt and loop.steps_run):
+            return
+        if loop.saved_step == loop.steps_target:
+            loop.exp.ckpt.wait()
+        else:
+            loop.save_checkpoint(loop.steps_target, final=True)

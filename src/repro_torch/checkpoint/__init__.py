@@ -1,1 +1,2 @@
-"""Parameter interop with the JAX checkpoint format."""
+"""Checkpoints in the reference's format (``ckpt``) and the mapping of
+the port's parameters and train state onto its keys (``interop``)."""

@@ -2,7 +2,9 @@
 parts the ported slices run).
 
 * ``PipelineState`` — the (epoch, cursor) iterator state; under the
-  selection plane it is also the PLAN CURSOR.
+  selection plane it is also the PLAN CURSOR, and as ``as_dict()`` it
+  rides every checkpoint's manifest (``meta["pipeline"]``), so a resume
+  re-plans the same sequence.
 * ``DataSource`` — the index math every source shares; ``SyntheticLM`` —
   seeded on-the-fly token streams with structured difficulty;
   ``SyntheticCLS`` — the paper's single-output classification setting.
@@ -30,6 +32,13 @@ from repro_torch import obs
 class PipelineState:
     epoch: int = 0
     cursor: int = 0
+
+    def as_dict(self):
+        return {"epoch": self.epoch, "cursor": self.cursor}
+
+    @classmethod
+    def from_dict(cls, d):
+        return cls(int(d["epoch"]), int(d["cursor"]))
 
     def advance(self, consumed: int, n_examples: int) -> "PipelineState":
         """Consume ``consumed`` global examples; roll the epoch at the end."""

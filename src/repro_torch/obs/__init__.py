@@ -13,8 +13,11 @@ exponential-bucket histograms, monotonic span timers)::
 Disabled (the default) every entry point reduces to a couple of
 attribute checks. Instrument names are the ones documented in
 ``repro/obs/schema.py`` (the lint gate's RL005 holds both packages to
-that one schema). Sinks, the telemetry hook and the IS-health layer are
-not ported yet: a run's counters are read with ``snapshot()``.
+that one schema). ``Experiment`` calls ``configure(run.obs)``, and
+``Experiment.fit`` installs the ``VarianceGainHook`` (IS health,
+``obs.health``) and the ``TelemetryHook`` (the flush to the JSONL,
+console or TensorBoard sink of ``run.obs``, ``obs.hook``/``obs.sinks``)
+when telemetry is on.
 
 ``device_mark`` / ``mark_intervals_ms`` time phases of device work with
 CUDA events, which cost no synchronisation: a caller records marks on
@@ -87,7 +90,27 @@ def reset() -> None:
     _registry.reset()
 
 
+def __getattr__(name):
+    # lazy: the hooks import repro_torch.api, which imports this module
+    if name == "TelemetryHook":
+        from repro_torch.obs.hook import TelemetryHook
+        return TelemetryHook
+    if name in ("VarianceGainHook", "ess", "variance_gain",
+                "speedup_estimate"):
+        from repro_torch.obs import health
+        return getattr(health, name)
+    if name in ("Sink", "JsonlSink", "ConsoleSink", "TensorBoardSink",
+                "make_sink"):
+        from repro_torch.obs import sinks
+        return getattr(sinks, name)
+    raise AttributeError(
+        f"module 'repro_torch.obs' has no attribute {name!r}")
+
+
 __all__ = ["Registry", "Counter", "Gauge", "Histogram", "Span",
            "get_registry", "enabled", "enable", "configure",
            "counter", "gauge", "histogram", "span", "device_mark",
-           "mark_intervals_ms", "snapshot", "reset"]
+           "mark_intervals_ms", "snapshot", "reset", "TelemetryHook",
+           "VarianceGainHook", "ess", "variance_gain", "speedup_estimate",
+           "Sink", "JsonlSink", "ConsoleSink", "TensorBoardSink",
+           "make_sink"]

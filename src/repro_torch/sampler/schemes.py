@@ -33,8 +33,11 @@ Schemes:
 * ``selective`` — Biggest-Losers-style selective backprop: the top-b of a
   sequential window by stored score, unweighted (``SelectiveSampler``).
 
-Many hosts, the injected simulated-host collectives and checkpoints wait
-for later slices.
+Every scheme's ``state_dict`` is the reference's, key for key and dtype
+for dtype (``sampler/store/{scores,seen,updates}``, ``sampler/epoch``,
+and ``tau_ema`` or the ``history`` gate's state), so the score memory
+crosses in checkpoints both ways. Many hosts and the injected
+simulated-host collectives wait for a later slice.
 """
 from __future__ import annotations
 
@@ -352,6 +355,16 @@ class HostPresampleSampler(Sampler):
         return {"store_coverage": self.store.coverage(),
                 "presample_tau": float(self.tau_ema),
                 "sampler_active": float(self.active)}
+
+    def state_dict(self) -> dict:
+        d = super().state_dict()
+        d["tau_ema"] = self.tau_ema
+        return d
+
+    def load_state_dict(self, d) -> None:
+        super().load_state_dict(d)
+        self.tau_ema = np.asarray(d.get("tau_ema", 0.0),
+                                  np.float64).reshape(())
 
 
 class FusedPresampleSampler(HostPresampleSampler):

@@ -132,7 +132,13 @@ def test_import_boundary():
                 "repro_torch.core.is_train",
                 "repro_torch.core.importance",
                 "repro_torch.optim.api",
-                "repro_torch.api.hooks"):
+                "repro_torch.api.hooks",
+                "repro_torch.api.loop",
+                "repro_torch.checkpoint.ckpt",
+                "repro_torch.checkpoint.interop",
+                "repro_torch.obs.health",
+                "repro_torch.obs.hook",
+                "repro_torch.obs.sinks"):
         assert mod in out["modules"], mod
     assert len(out["modules"]) >= 40
     # and statically, so a lazy import inside a function is caught too
@@ -179,17 +185,22 @@ def test_launcher_runs_on_cpu_when_asked(capsys):
     assert all(np.isfinite(float(ln.split()[3])) for ln in lines)
 
 
-def test_unported_paths_raise():
+def test_unported_paths_raise(tmp_path):
     """Every scheme route is ported (``imp.presample_impl="step"`` builds
-    the in-step ``presample`` kind); checkpoints and sharded scoring are
-    the routes still to be ported, and they raise."""
+    the in-step ``presample`` kind), and so are checkpoints: a ``ckpt_dir``
+    run saves a committed checkpoint. Sharded scoring is the route still
+    to be ported, and it raises."""
     run = build_run("lm-tiny", preset="prod",
                     overrides=dict(OVERRIDES, **{"imp.presample_impl": "step"}))
     exp = Experiment(run, device="cpu")
     assert exp.step_is_flagged is False
-    with pytest.raises(ValueError, match="not ported"):
-        Experiment(build_run("lm-tiny", preset="smoke",
-                             overrides={"ckpt_dir": "ckpt"}), device="cpu")
+    ckpt = tmp_path / "ckpt"
+    exp = Experiment(build_run("lm-tiny", preset="smoke", overrides={
+        "ckpt_dir": str(ckpt), "steps": 2, "shape.seq_len": 16}),
+        device="cpu")
+    _, hist = exp.fit()
+    assert len(hist) == 2 and exp.ckpt.steps() == [2]
+    assert (ckpt / "step_2" / "COMMIT").exists()
     with pytest.raises(NotImplementedError, match="not ported"):
         repro_torch.score("lm-tiny", preset="smoke", mesh="pod",
                           device="cpu")
