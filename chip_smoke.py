@@ -22,15 +22,32 @@ Phases, in order; each raises on failure, so the process exits non-zero:
               to the plain version's run on the same tensors;
 5. lm-tiny  — the prod slice at lm-tiny on the card against the same run
               on the CPU (same params, same plans, losses to 1e-3);
+5b. plane lm-tiny — the data plane at lm-tiny over a seeded ``MemmapLM``
+              corpus written under ``build/``: the ``presample`` kind at
+              depth 2 with device-put, faults ``gather@2`` (surfaced, then
+              re-popped) and ``slow@5..7`` (the real straggler monitor
+              retries step 7 from a state copy on the card), on the card
+              and on the CPU from the same params: plans equal, losses to
+              1e-3, attempts, copies, restores and fired faults as set;
+5c. plane gpu tests — the ``gpu`` cases of
+              ``tests/test_torch_pipeline_gpu.py`` in a child process: every
+              uploaded batch bitwise its host arrays under a busy and an
+              idle compute stream;
 6. slice    — ``repro_torch.train("llama3.2-3b", preset="prod", ...)``:
-              full width and depth, the cuts printed, ``STEPS`` steps; the
-              kernels' launch counts are zeroed just before and read just
-              after (K4: 8 a step; K5: 28 a step, all the wgmma kernel's).
-              Steps 0, 1 and 3 are timed; step
-              ``PROFILED`` runs under ``torch.profiler``: where a steady
-              step's device time goes, by kernel group and by name, and
-              the device's idle share against step 1's unprofiled wall
-              time (the full table goes to ``chiprun_out/profile_step.txt``);
+              full width and depth, the cuts printed, ``STEPS`` steps,
+              ``prod``'s data plane (depth 2, device-put on its own
+              stream); the kernels' launch counts are zeroed just before
+              and read just after (K4: 8 a step; K5: 28 a step, all the
+              wgmma kernel's). Every step is timed, with the plane's stage
+              seconds since the last step (``plane.next_wait``, ``.gather``,
+              ``.device_put``, ``.credit_stalls``; the registry turned on,
+              no sink); step ``PROFILED`` runs under ``torch.profiler``:
+              where a steady step's device time goes, by kernel group and
+              by name, the device's idle share against step 1's unprofiled
+              wall time (the full table goes to
+              ``chiprun_out/profile_step.txt``), and the pool's
+              host-to-card copies by CUDA stream, which must not be the
+              stream K5 runs on;
 6b. cell A resume — phase 6's run with ``prod``'s checkpoints and
               telemetry (``obs.enabled``, JSONL under
               ``chiprun_out/obs/``; ``ckpt_dir`` under ``build/``,
@@ -54,6 +71,14 @@ Phases, in order; each raises on failure, so the process exits non-zero:
               finite; the checkpoint's bytes, each save's split (snapshot
               to host, write, commit) and the restores' wall times beside
               the card; the directory removed;
+6c. cell A depth 1 — phase 6's run with ``data.prefetch_depth`` 1: every
+              step's plan equals phase 6's, losses to 1e-3 relative (and
+              whether bitwise); per step the plane's stage seconds, wall
+              time and (profiled step) idle share beside phase 6's and
+              the parent's synchronous plane's; then phase 6's run with a
+              scripted monitor voting one retry of step 1: plans and
+              losses phase 6's, K4 and K5 counts unchanged, the state
+              copy's place and seconds and the restore's seconds printed;
 7. timing   — K4 per launch (CUDA events) beside its plain version and its
               bound at the slice's shape;
 8. K6       — ``topk_race_keys`` against its plain version on the card:
@@ -162,8 +187,9 @@ Phases, in order; each raises on failure, so the process exits non-zero:
               width and depth, pool 12, the cuts printed; counts zeroed just
               before and read just after (K5: 28 a step, the wgmma
               kernel's; K1, pool_select, K4: 0);
-              per step the loss, τ, weights, wall time, peak memory (step
-              ``PROFILED`` under ``torch.profiler``); then one
+              per step the loss, τ, weights, wall time, the plane's stage
+              seconds, peak memory (step ``PROFILED`` under
+              ``torch.profiler``, its host-to-card copies by stream); then one
               ``fused_presample`` on a fresh pool's logits from the final
               params (K1 once, then ``pool_select`` once): scores against
               ``sample_stats``
@@ -415,6 +441,116 @@ def check_lm_tiny():
             f"{[int(h['sampler_active']) for h in hg]}")
 
 
+CORPUS = ROOT / "build" / "memmap_lm_tiny.npy"    # listed in .gitignore
+PLANE_FAULTS = "gather@2;slow@5:0:30;slow@6:0:30;slow@7:0:30"
+
+
+def check_plane_lm_tiny():
+    """Phase 5b: the data plane at lm-tiny over a ``MemmapLM`` corpus, on
+    the card and on the CPU from the same params: the ``presample`` kind
+    (gate never: no draws) at depth 2 with device-put, ``gather@2`` (the
+    plane surfaces the error and the loop pops the re-gathered batch) and
+    ``slow@5..7`` (the real straggler monitor floors its shrink, then
+    votes one retry of step 7, restored from the state copy)."""
+    from repro_torch import obs
+    from repro_torch.api import Experiment, Hook, build_run
+    from repro_torch.checkpoint import interop
+    from repro_torch.data.pipeline import MemmapLM
+    from repro_torch.runtime import faults
+    steps, seq = 9, 64
+    run = build_run("lm-tiny", preset="prod", overrides={
+        "shape.seq_len": seq, "shape.global_batch": 4, "steps": steps,
+        "imp.presample_impl": "step", "data.prefetch_depth": 2,
+        "obs.enabled": True, "obs.sink": "none",
+        "runtime.faults.enabled": True, "runtime.faults.spec": PLANE_FAULTS})
+    CORPUS.parent.mkdir(exist_ok=True)
+    rng = np.random.default_rng(5)
+    np.save(CORPUS, rng.integers(0, run.model.vocab_size, 4096 * seq + 1,
+                                 dtype=np.int32))
+
+    class Rec(Hook):
+        def __init__(self):
+            self.gids, self.loop = [], None
+
+        def on_loop_start(self, loop, start, n):
+            self.loop = loop
+
+        def on_step_start(self, loop, step, batch, meta):
+            self.gids.append([int(g) for g in meta.gids])
+
+    res = {}
+    gpu = Experiment(run, source=MemmapLM(CORPUS, seq, seed=run.seed),
+                     gate="never")
+    cpu = Experiment(run, source=MemmapLM(CORPUS, seq, seed=run.seed),
+                     device="cpu", gate="never")
+    interop.load_params(cpu.lm, interop.params_to_numpy(gpu.lm))
+    for tag, exp in (("gpu", gpu), ("cpu", cpu)):
+        rec = Rec()
+        # one fault schedule per process: re-arm it for each run
+        faults.configure(run.runtime.faults)
+        obs.reset()
+        _, hist = exp.fit(hooks=[rec])
+        snap = obs.snapshot()
+        plane = rec.loop.plane
+        res[tag] = dict(
+            gids=rec.gids, losses=[h["loss"] for h in hist],
+            attempts=[h["attempts"] for h in hist],
+            copies=rec.loop.snapshot.taken,
+            restores=rec.loop.snapshot.restored,
+            where=rec.loop.snapshot.where,
+            faults={k: snap.get(f"faults.{k}", 0) for k in ("gather",
+                                                          "slow")},
+            loop_retries=snap.get("loop.retries", 0),
+            device_put_bytes=snap.get("plane.device_put_bytes", 0),
+            plane_device=str(plane.device), copy_stream=(
+                plane._copy_stream is not None))
+    obs.enable(False)
+    obs.reset()
+    faults.configure(None)
+    g, c = res["gpu"], res["cpu"]
+    assert g["gids"] == c["gids"], (g["gids"], c["gids"])
+    for a, b in zip(g["losses"], c["losses"]):
+        assert math.isfinite(a) and abs(a - b) < 1e-3, (a, b)
+    for r in (g, c):
+        assert r["attempts"] == [1] * 7 + [2, 1], r["attempts"]
+        assert (r["copies"], r["restores"]) == (2, 1), r
+        assert r["faults"] == {"gather": 1, "slow": 3}, r["faults"]
+        assert r["loop_retries"] == 2, r    # the re-pop and the retry
+        assert r["device_put_bytes"] > 0
+    assert g["where"] == "device" and g["copy_stream"], g
+    assert c["where"] == "cpu" and not c["copy_stream"], c
+    log(f"[plane lm-tiny] MemmapLM {CORPUS.name} ({4096} sequences of "
+        f"{seq}), depth 2, faults {PLANE_FAULTS!r}: plans card = cpu, "
+        f"losses to 1e-3 (card {[round(x, 5) for x in g['losses']]}, "
+        f"bitwise {g['losses'] == c['losses']}); attempts {g['attempts']}; "
+        f"state copies {g['copies']} ({g['where']}), restores "
+        f"{g['restores']}; faults fired {g['faults']}; loop.retries "
+        f"{g['loop_retries']}; uploads on the plane's stream "
+        f"{g['copy_stream']}")
+    CORPUS.unlink()
+    return res
+
+
+def run_plane_gpu_tests():
+    """Phase 5c: the ``gpu`` cases of ``tests/test_torch_pipeline_gpu.py``
+    (every uploaded batch bitwise its host arrays under a busy and an idle
+    compute stream), in a child process with a time limit."""
+    import os
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "pytest", "-q", "-p", "no:cacheprovider",
+         "-m", "gpu", "tests/test_torch_pipeline_gpu.py"], cwd=ROOT,
+        capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    tail = (r.stdout.strip().splitlines() or [""])[-1]
+    log(f"[plane gpu tests] rc {r.returncode}: {tail} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if r.returncode != 0:
+        log(r.stdout[-4000:] + r.stderr[-2000:])
+        raise RuntimeError("the data plane's gpu tests failed")
+    return tail
+
+
 CELL_A = {"shape.global_batch": BATCH, "shape.seq_len": 1024,
           "steps": STEPS, "obs.enabled": False}
 KERNEL_GROUPS = (  # first match wins; names as the profiler reports them
@@ -429,21 +565,32 @@ KERNEL_GROUPS = (  # first match wins; names as the profiler reports them
 )
 
 
-def run_slice(out):
-    """Phase 6: the port's main path at llama3.2-3b full width."""
-    import repro_torch
+PLANE_SPANS = ("plane.next_wait", "plane.gather", "plane.device_put",
+               "plane.plan")
+POOL_BYTES = 3 * BATCH * 1024 * 4   # one int32 (pool, 1024) array: tokens
+# the parent's synchronous depth-1 plane (PERF.md §5, PR 16's run 8 and
+# PR 18's runs): step wall times, NVIDIA H100 80GB HBM3 at 700 W
+PARENT_STEP_S = {"cell A": "0.80-1.03", "cell E": "1.04-1.05"}
+
+
+def _plane_snapshot():
+    from repro_torch import obs
+    snap = obs.snapshot()
+    out = {n: (snap.get(n) or {}).get("sum", 0.0) for n in PLANE_SPANS}
+    out["plane.credit_stalls"] = snap.get("plane.credit_stalls", 0)
+    return out
+
+
+def _step_log(tag, profiled=PROFILED, extra=None):
+    """A hook that logs each step of a cell: its plan's gids, loss, wall
+    time (host clock between two device synchronisations), peak memory
+    and the data plane's stage seconds since the last step's end (the
+    telemetry registry is turned on for the run, with no sink: the
+    ``plane.*`` spans and ``plane.credit_stalls``); step ``profiled``
+    runs under ``torch.profiler``."""
+    from repro_torch import obs
     from repro_torch.api import Hook
-    from repro_torch.kernels.ce_score import ce_score as k4
-    from repro_torch.kernels.flash_attn import flash_attn as k5
-    from repro_torch.kernels.topk_keys import topk_keys as k6
     from torch.profiler import ProfilerActivity, profile
-    overrides = dict(CELL_A)
-    log(f"[slice] llama3.2-3b, preset prod, overrides {overrides}")
-    log("[slice] cuts from prod: seq_len 4096 -> 1024; global_batch 256 -> "
-        f"{BATCH}; steps 1000 -> {STEPS} (step {PROFILED} under "
-        "torch.profiler); telemetry on -> off; checkpointing on -> none; "
-        "data plane pipelined -> synchronous, depth 1. Width, depth "
-        "(28 layers) and vocab are not cut.")
 
     class StepLog(Hook):
         def __init__(self):
@@ -451,30 +598,96 @@ def run_slice(out):
             self.prof = profile(activities=[ProfilerActivity.CPU,
                                             ProfilerActivity.CUDA])
 
+        def on_loop_start(self, loop, start, steps):
+            obs.enable(True)
+            obs.reset()
+            self.plane0 = _plane_snapshot()
+
         def on_step_start(self, loop, step, b, meta):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             self.gids = [int(g) for g in meta.gids]
-            if step == PROFILED:
+            if step == profiled:
                 self.prof.start()
             self.t0 = time.perf_counter()
 
         def on_step_end(self, loop, step, m):
             torch.cuda.synchronize()
             wall = time.perf_counter() - self.t0
-            if step == PROFILED:
+            if step == profiled:
                 self.prof.stop()
-            st = loop.exp.sampler.last_prune
-            row = dict(step=step, loss=m["loss"], tau_hat=m["presample_tau"],
-                       is_active=m["sampler_active"], gids=self.gids,
-                       rows_killed=int(st[0]), tiles_skipped=int(st[1]),
-                       tiles_total=int(st[2]), step_s=wall,
-                       profiled=step == PROFILED,
+            now = _plane_snapshot()
+            plane = {k: now[k] - self.plane0[k] for k in now}
+            self.plane0 = now
+            row = dict(step=step, loss=m["loss"], gids=self.gids,
+                       attempts=m["attempts"], step_s=wall,
+                       profiled=step == profiled, plane=plane,
                        peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+            row.update(extra(loop, m) if extra else {})
             self.rows.append(row)
-            log("[slice] " + json.dumps(row))
+            log(f"[{tag}] " + json.dumps(row))
 
-    hook = StepLog()
+        def on_loop_end(self, loop, state, history):
+            # the registry is the process's: leave it off and empty, as
+            # the next phase's run expects it
+            obs.enable(False)
+            obs.reset()
+            # what the phases read after the run; nothing that holds the
+            # model, so the next phase has the card's memory
+            self.plane = dict(depth=loop.plane.depth,
+                              pipelined=loop.plane.pipelined,
+                              finalize=loop.plane.finalize)
+            self.snapshot = loop.snapshot
+
+    return StepLog()
+
+
+def _prune_row(loop, m):
+    st = loop.exp.sampler.last_prune
+    return dict(tau_hat=m["presample_tau"], is_active=m["sampler_active"],
+                rows_killed=int(st[0]), tiles_skipped=int(st[1]),
+                tiles_total=int(st[2]))
+
+
+def _h2d_streams(prof, tag):
+    """The profiled window's host-to-card copies by CUDA stream, beside
+    the stream the K5 kernels ran on (the compute stream), from the
+    profiler's trace."""
+    path = ROOT / "build" / f"trace_{tag}.json"
+    path.parent.mkdir(exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text()).get("traceEvents", [])
+    path.unlink()
+    compute = sorted({e["args"]["stream"] for e in events
+                      if e.get("cat") == "kernel"
+                      and "flash_fwd_wgmma" in e.get("name", "")})
+    h2d = [(e["args"].get("stream"), e["args"].get("bytes"))
+           for e in events if "memcpy" in str(e.get("cat", "")).lower()
+           and "HtoD" in e.get("name", "")]
+    pool = sorted({st for st, n in h2d if n == POOL_BYTES})
+    by_stream = {}
+    for st, _ in h2d:
+        by_stream[str(st)] = by_stream.get(str(st), 0) + 1
+    return {"compute_streams": compute, "pool_h2d_streams": pool,
+            "pool_h2d": sum(n == POOL_BYTES for _, n in h2d),
+            "h2d_by_stream": by_stream}
+
+
+def run_slice(out):
+    """Phase 6: the port's main path at llama3.2-3b full width."""
+    import repro_torch
+    from repro_torch.kernels.ce_score import ce_score as k4
+    from repro_torch.kernels.flash_attn import flash_attn as k5
+    from repro_torch.kernels.topk_keys import topk_keys as k6
+    overrides = dict(CELL_A)
+    log(f"[slice] llama3.2-3b, preset prod, overrides {overrides}")
+    log("[slice] cuts from prod: seq_len 4096 -> 1024; global_batch 256 -> "
+        f"{BATCH}; steps 1000 -> {STEPS} (step {PROFILED} under "
+        "torch.profiler); telemetry on -> off (the registry is read for the "
+        "plane.* stage times, no sink); checkpointing on -> none. The data "
+        "plane is prod's (depth 2, device-put on its own stream). Width, "
+        "depth (28 layers) and vocab are not cut.")
+    hook = _step_log("slice", extra=_prune_row)
     k4.launches = k6.launches = 0
     _k5_zero(k5)
     t0 = time.perf_counter()
@@ -486,6 +699,8 @@ def run_slice(out):
     total = time.perf_counter() - t0
     assert len(history) == STEPS
     assert all(math.isfinite(h["loss"]) for h in history), history
+    assert hook.plane == dict(depth=2, pipelined=True, finalize=True), \
+        hook.plane
     log(f"[slice] {STEPS} steps in {total:.1f} s (model build included); "
         f"K4 launches {launches} ({launches / STEPS:g} per step), K5 "
         f"{k5_launches} ({k5_launches / STEPS:g} per step, the pool's "
@@ -495,9 +710,17 @@ def run_slice(out):
     assert k5_by == {"wgmma": N_LAYERS * STEPS, "mma": 0}, \
         "the wgmma K5 was not launched once per layer of each pool's scoring"
     breakdown = step_breakdown(hook.prof, hook.rows, out)
+    streams = _h2d_streams(hook.prof, "slice")
+    log(f"[slice] profiled step's host-to-card copies: {streams}")
+    assert streams["pool_h2d"] >= 1, \
+        "no upload of a pool in the profiled step"
+    assert not set(streams["pool_h2d_streams"]) & set(
+        streams["compute_streams"]), \
+        "a pool was uploaded on the compute stream, not the plane's"
     gc.collect()
     torch.cuda.empty_cache()
-    return launches, k5_by, hook.rows, breakdown
+    return launches, k5_by, hook.rows, dict(breakdown or {},
+                                            h2d_streams=streams)
 
 
 CKPT_DIR = ROOT / "build" / "ckpt_cell_a"   # listed in .gitignore
@@ -683,6 +906,123 @@ def run_cell_a_resume(straight, smi):
     # 8. the directory goes
     shutil.rmtree(CKPT_DIR)
     return out
+
+
+def _same_rows(tag, got_rows, want_rows):
+    """Every step's plan equals phase 6's, losses to 1e-3 relative;
+    returns whether the losses are bitwise."""
+    assert [r["step"] for r in got_rows] == [r["step"] for r in want_rows]
+    bitwise = True
+    for got, want in zip(got_rows, want_rows):
+        assert got["gids"] == want["gids"], (tag, got, want)
+        rel = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+        assert rel <= 1e-3, (tag, got, want)
+        bitwise &= got["loss"] == want["loss"]
+    return bitwise
+
+
+class ScriptedSkip:
+    """A scripted straggler monitor (the reference's ``SkipOnce``): one
+    skip, on its second observation — step 1's first attempt."""
+
+    def __init__(self):
+        self.calls = 0
+
+    def observe(self, dt):
+        self.calls += 1
+        return {"skip": self.calls == 2, "b_scale": 1.0,
+                "over_deadline": False}
+
+
+def run_cell_a_depth1(out, straight, breakdown6, smi):
+    """Phase 6c: cell A with the plane at depth 1 beside phase 6's depth
+    2, then one forced retry at depth 2."""
+    from repro_torch.api import Experiment, build_run
+    from repro_torch.kernels.ce_score import ce_score as k4
+    from repro_torch.kernels.flash_attn import flash_attn as k5
+    overrides = dict(CELL_A, **{"data.prefetch_depth": 1})
+    log(f"[depth 1] llama3.2-3b, preset prod, overrides {overrides}; cuts "
+        "from prod as phase 6's, the plane at depth 1")
+    hook = _step_log("depth 1", extra=_prune_row)
+    gc.collect()
+    torch.cuda.empty_cache()
+    exp = Experiment(build_run("llama3.2-3b", preset="prod",
+                               overrides=overrides))
+    k4.launches = 0
+    _k5_zero(k5)
+    exp.fit(hooks=[hook])
+    torch.cuda.synchronize()
+    assert hook.plane["depth"] == 1, hook.plane
+    assert k4.launches == 8 * STEPS and dict(k5.launches_by_kernel) == {
+        "wgmma": N_LAYERS * STEPS, "mma": 0}
+    bitwise = _same_rows("depth 1", hook.rows, straight)
+    breakdown = step_breakdown(hook.prof, hook.rows, out, "profile depth 1",
+                               "profile_step_depth1")
+    streams = _h2d_streams(hook.prof, "depth1")
+    assert not set(streams["pool_h2d_streams"]) & set(
+        streams["compute_streams"]), streams
+    idle = {1: (breakdown or {}).get("idle_share"),
+            2: (breakdown6 or {}).get("idle_share")}
+    log(f"[depth 1] every step's plan is phase 6's, losses to 1e-3 "
+        f"relative, bitwise: {bitwise} | {smi}")
+    for r1, r2 in zip(hook.rows, straight):
+        cols = []
+        for tag, r, d in (("depth 1", r1, 1), ("depth 2", r2, 2)):
+            p = r["plane"]
+            cols.append(
+                f"{tag}: wall {r['step_s']:.4f} s, next_wait "
+                f"{p['plane.next_wait'] * 1e3:.3f} ms, gather "
+                f"{p['plane.gather'] * 1e3:.3f} ms, device_put "
+                f"{p['plane.device_put'] * 1e3:.3f} ms, credit_stalls "
+                f"{p['plane.credit_stalls']}, idle share "
+                + (f"{idle[d]:.3f}" if r["profiled"] and idle[d] is not None
+                   else "not measured"))
+        log(f"[depth 1] step {r1['step']}: " + " | ".join(cols)
+            + f" | the parent's synchronous plane {PARENT_STEP_S['cell A']} "
+            "s (PERF.md §5)")
+    del exp
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # one forced retry at full width: a scripted monitor votes a skip on
+    # step 1's first attempt; the state copy goes to pinned host memory
+    # (45 GB of state, 80 GB of card), and the retry restores it
+    retry = _step_log("retry", profiled=-1, extra=_prune_row)
+    exp = Experiment(build_run("llama3.2-3b", preset="prod",
+                               overrides=CELL_A))
+    exp.monitor = ScriptedSkip()
+    n = sum(p.numel() for p in exp.lm.parameters())
+    state_bytes = sum(p.numel() * p.element_size()
+                      for p in exp.lm.parameters()) + 3 * 4 * n
+    k4.launches = 0
+    _k5_zero(k5)
+    t0 = time.perf_counter()
+    _, hist = exp.fit(hooks=[retry])
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    snap = retry.snapshot
+    assert [h["attempts"] for h in hist] == [1, 2, 1, 1], hist
+    assert (snap.taken, snap.restored) == (5, 1), (snap.taken, snap.restored)
+    retry_bitwise = _same_rows("retry", retry.rows, straight)
+    # the retried attempt scores no pool again: the counts are phase 6's
+    assert k4.launches == 8 * STEPS and dict(k5.launches_by_kernel) == {
+        "wgmma": N_LAYERS * STEPS, "mma": 0}
+    res = dict(state_bytes=state_bytes, where=snap.where,
+               snapshot_s=snap.take_s, restore_s=snap.restore_s,
+               attempts=[h["attempts"] for h in hist],
+               losses_bitwise=retry_bitwise, total_s=total, card=smi)
+    log(f"[retry] step 1 retried once (attempts {res['attempts']}); every "
+        f"step's plan is phase 6's, losses to 1e-3 relative, bitwise: "
+        f"{retry_bitwise}; K4 {k4.launches}, K5 {dict(k5.launches_by_kernel)}")
+    log(f"[retry] the state copy: {state_bytes / 1e9:.3f} GB in {snap.where}"
+        f" memory; taken {snap.taken} times "
+        f"({', '.join(f'{t:.3f}' for t in snap.take_s)} s), restored once "
+        f"({snap.restore_s[0]:.3f} s); fit {total:.1f} s | {smi}")
+    del exp, hist
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(steps=hook.rows, bitwise=bitwise, profile=breakdown,
+                h2d_streams=streams, retry=res, retry_steps=retry.rows)
 
 
 def _device_time(prof):
@@ -2024,7 +2364,9 @@ CELL_E_CUTS = (
     f"{BATCH} (pool {3 * BATCH}); steps 1000 -> {STEPS}; presample fused + "
     "conservative pruning -> the in-step presample kind (the slice's point)"
     ", gate='always' so every step takes the IS branch; telemetry on -> "
-    "off; checkpointing on -> none. Width, depth (28 layers) and vocab are "
+    "off (the registry is read for the plane.* stage times, no sink); "
+    "checkpointing on -> none. The data plane is prod's (depth 2, "
+    "device-put on its own stream). Width, depth (28 layers) and vocab are "
     "not cut.")
 
 
@@ -2034,6 +2376,7 @@ def run_cell_e(out):
     ``chiprun_out/profile_cell_e.txt``), then the fused device op on a
     fresh pool from the final params."""
     import repro_torch
+    from repro_torch import obs
     from repro_torch.api import Hook
     from repro_torch.core import importance
     from repro_torch.data.pipeline import to_device
@@ -2061,6 +2404,11 @@ def run_cell_e(out):
             self.prof = profile(activities=[ProfilerActivity.CPU,
                                             ProfilerActivity.CUDA])
 
+        def on_loop_start(self, loop, start, steps):
+            obs.enable(True)
+            obs.reset()
+            self.plane0 = _plane_snapshot()
+
         def on_step_start(self, loop, step, b, meta):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -2075,7 +2423,11 @@ def run_cell_e(out):
             if step == PROFILED:
                 self.prof.stop()
             w = weights[-1]
+            now = _plane_snapshot()
+            plane = {k: now[k] - self.plane0[k] for k in now}
+            self.plane0 = now
             row = dict(step=step, loss=m["loss"], tau=m["tau"],
+                       attempts=m["attempts"], plane=plane,
                        is_active=m["is_active"], w_min=float(w.min()),
                        w_max=float(w.max()), step_s=wall,
                        profiled=step == PROFILED,
@@ -2085,6 +2437,8 @@ def run_cell_e(out):
 
         def on_loop_end(self, loop, state, history):
             self.exp = loop.exp
+            obs.enable(False)
+            obs.reset()
 
     hook = StepLog()
     gc.collect()
@@ -2121,6 +2475,17 @@ def run_cell_e(out):
         assert math.isfinite(r["w_min"]) and r["w_min"] > 0, r
     breakdown = step_breakdown(hook.prof, hook.rows, out, "profile E",
                                "profile_cell_e")
+    # the pool of step PROFILED + 2 is planned, gathered and uploaded as
+    # step PROFILED's batch leaves the plane, which may be just before the
+    # profiler starts: its upload is logged, and held off the compute
+    # stream where the window caught it
+    streams = _h2d_streams(hook.prof, "cell_e")
+    log(f"[profile E] profiled step's host-to-card copies: {streams} (the "
+        f"parent's synchronous plane: steps {PARENT_STEP_S['cell E']} s, "
+        "PERF.md §5)")
+    assert not set(streams["pool_h2d_streams"]) & set(
+        streams["compute_streams"]), streams
+    breakdown = dict(breakdown or {}, h2d_streams=streams)
     exp = hook.exp
     del history
     gc.collect()
@@ -2342,10 +2707,13 @@ def main():
     err = check_k4(gen)
     check_prune(gen)
     check_lm_tiny()
+    plane_tiny = check_plane_lm_tiny()
+    plane_gpu = run_plane_gpu_tests()
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     launches, k5_cell_a, rows, breakdown = run_slice(out)
     resume = run_cell_a_resume(rows, smi)
+    depth1 = run_cell_a_depth1(out, rows, breakdown, smi)
     ms, plain_ms, bound_ms, by = time_k4(gen)
     store = _warm_store()
     k6_abs, k6_rel = check_k6(store)
@@ -2458,7 +2826,8 @@ def main():
                                  "count": torch.cuda.device_count()}}
     (out / "chip_smoke.json").write_text(json.dumps(
         {"card": smi, "steps": rows, "profile": breakdown,
-         "cell_a_resume": resume,
+         "cell_a_resume": resume, "cell_a_depth1": depth1,
+         "plane_lm_tiny": plane_tiny, "plane_gpu_tests": plane_gpu,
          "history_steps": hrows, "sharded_vs_f64_loop": vs_loop,
          "k5_cases": k5_cases, "serve_lm_tiny_err": tiny_err,
          "cell_c": cell_c, "cell_c_vs_plain": c_vs_plain, "cell_d": cell_d,

@@ -9,14 +9,16 @@ from repro_torch.api.config import (ConfigError, PRESETS, apply_overrides,
 from repro_torch.api.experiment import (Experiment, resolve_device, score,
                                         train)
 from repro_torch.api.hooks import (CallbackHook, CheckpointHook, Hook,
-                                   LoggingHook, MetricsHistoryHook)
+                                   LoggingHook, MetricsHistoryHook,
+                                   StragglerHook)
 from repro_torch.api.loop import TrainLoop
 from repro_torch.api.serving import serve
 
 __all__ = [
     "Experiment", "train", "score", "serve", "resolve_device", "TrainLoop",
     "Hook", "CallbackHook", "CheckpointHook", "LoggingHook",
-    "MetricsHistoryHook", "ConfigError", "PRESETS", "apply_overrides",
-    "build_run", "get_preset", "list_presets", "register_preset",
-    "parse_cli", "truthy", "to_dict", "from_dict", "to_json", "from_json",
+    "MetricsHistoryHook", "StragglerHook", "ConfigError", "PRESETS",
+    "apply_overrides", "build_run", "get_preset", "list_presets",
+    "register_preset", "parse_cli", "truthy", "to_dict", "from_dict",
+    "to_json", "from_json",
 ]

@@ -23,9 +23,15 @@ other. ``Experiment.from_checkpoint(dir)`` rebuilds the run from the
 config in the checkpoint's manifest. With ``run.obs.enabled``, ``fit``
 installs the IS-health hook first and the telemetry flush last.
 
-Not ported: meshes, the straggler monitor and its ``StragglerHook``, the
-elastic runtime, and the resume onto another host count (the
-reference's ``_resume_resharded``; ``TopologyMismatch`` propagates).
+Data: ``make_plane`` builds the depth-``run.data.prefetch_depth`` data
+plane, with its device-put stage when ``run.data.device_put``. Faults:
+``run.runtime.faults`` arms the deterministic fault schedule. Stragglers:
+``monitor`` is the ``StragglerMonitor`` that ``fit``'s ``StragglerHook``
+feeds (swap it for a scripted one in tests).
+
+Not ported: meshes, the elastic runtime (a ``MembershipChange`` leaves
+``fit``), and the resume onto another host count (the reference's
+``_resume_resharded``; ``TopologyMismatch`` propagates).
 """
 from __future__ import annotations
 
@@ -45,6 +51,8 @@ from repro_torch.data.pipeline import (DataPlane, PipelineState,
                                        SyntheticCLS, SyntheticLM)
 from repro_torch.models.lm import LM
 from repro_torch.optim.api import get_optimizer
+from repro_torch.runtime import faults
+from repro_torch.runtime.straggler import StragglerMonitor
 from repro_torch.sampler.schemes import make_sampler
 from repro_torch.scoring.engine import ScoreEngine
 
@@ -97,6 +105,7 @@ class Experiment:
         self.run = run_cfg
         self.device = resolve_device(device)
         obs.configure(run_cfg.obs)
+        faults.configure(run_cfg.runtime.faults, host_id=0)
         gen = torch.Generator(device=self.device).manual_seed(run_cfg.seed)
         self.lm = LM(run_cfg.model, device=self.device, generator=gen)
         self.opt = get_optimizer(run_cfg.optim)
@@ -111,6 +120,7 @@ class Experiment:
                                     device=self.device)
         self.engine = ScoreEngine(self.lm, run_cfg)
         self.sampler.bind_engine(self.engine)
+        self.monitor = StragglerMonitor(run_cfg.step_deadline_factor)
         self.default_hooks = list(hooks)
         # presample runs the paper's Algorithm 1 inside the step; the
         # score-memory and host/fused presample schemes hand the step b
@@ -166,7 +176,13 @@ class Experiment:
         return cls(run, source=source, device=device, **kw)
 
     def make_plane(self) -> DataPlane:
-        return DataPlane(self.sampler, self.device)
+        """A fresh per-run data plane over this experiment's sampler:
+        pure-plan schemes (uniform, presample) get the depth-N pipelined
+        plan → gather → device-put stages (``run.data``); store- and
+        engine-coupled schemes pass through. The loop owns its lifetime."""
+        return DataPlane(self.sampler, depth=self.run.data.prefetch_depth,
+                         device_put=self.run.data.device_put,
+                         device=self.device)
 
     def init_state(self):
         return (train_state_init(self.lm, self.opt, self.run.seed),
@@ -203,7 +219,8 @@ class Experiment:
     def fit(self, steps=None, log_every=None, callback=None, hooks=()):
         """Train via the loop. Returns ``(state, history)``."""
         from repro_torch.api.hooks import (CallbackHook, CheckpointHook,
-                                           LoggingHook, MetricsHistoryHook)
+                                           LoggingHook, MetricsHistoryHook,
+                                           StragglerHook)
         from repro_torch.api.loop import TrainLoop
         hs = [MetricsHistoryHook()]
         if self.run.obs.enabled:
@@ -215,7 +232,7 @@ class Experiment:
         hs += list(self.default_hooks) + list(hooks)
         if callback is not None:
             hs.append(CallbackHook(callback))
-        hs.append(CheckpointHook())
+        hs += [CheckpointHook(), StragglerHook()]
         if self.run.obs.enabled:
             # the flush last: its snapshot holds what every hook recorded
             from repro_torch.obs.hook import TelemetryHook

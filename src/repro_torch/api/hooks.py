@@ -1,15 +1,24 @@
 """Hooks for the training loop (``repro.api.hooks``). A hook subclasses
 ``Hook`` and overrides the events it cares about; the loop calls every
-hook for every event, in order.
+hook for every event, in order. Hooks are observers except
+``on_step_timed``, the loop's one control point: returning True votes to
+retry the same batch.
 
 Shipped hooks: ``MetricsHistoryHook`` (the per-step metrics ``fit``
 returns), ``LoggingHook`` (the step log line), ``CallbackHook`` (adapts
-``callback(step, metrics)``) and ``CheckpointHook`` (periodic and final
-checkpoints). The IS-health and telemetry hooks live in
-``repro_torch.obs``. The reference's ``StragglerHook`` waits for the
-straggler monitor, which is not ported yet.
+``callback(step, metrics)``), ``CheckpointHook`` (periodic and final
+checkpoints) and ``StragglerHook`` (the straggler monitor's retry vote
+and escalation). The IS-health and telemetry hooks live in
+``repro_torch.obs``.
+
+A hook that overrides ``on_step_timed`` may define ``may_vote(loop)``:
+False promises that its next vote is False, so the loop need not copy
+the train state before that attempt (the retry restores that copy).
 """
 from __future__ import annotations
+
+from repro_torch.runtime.membership import MembershipChange, MembershipEvent
+from repro_torch.runtime.straggler import StragglerMonitor
 
 
 class Hook:
@@ -19,6 +28,14 @@ class Hook:
         pass
 
     def on_step_start(self, loop, step, batch, meta):
+        pass
+
+    def on_step_timed(self, loop, step, attempt, dt):
+        """Called after EVERY attempt (retries included) with its wall
+        time. Return True to vote for retrying the same batch."""
+        return False
+
+    def on_retry(self, loop, step, attempt, dt):
         pass
 
     def on_step_end(self, loop, step, metrics):
@@ -96,3 +113,38 @@ class CheckpointHook(Hook):
             loop.exp.ckpt.wait()
         else:
             loop.save_checkpoint(loop.steps_target, final=True)
+
+
+class StragglerHook(Hook):
+    """Straggler escalation as a hook: feed every attempt's wall time to
+    the experiment's ``StragglerMonitor`` (read at call time, so a test can
+    swap ``exp.monitor``) and vote to retry while it reports a skip.
+
+    When the monitor reports ``escalate`` — the shrink floored AND the
+    skip budget spent — the hook raises ``MembershipChange``. The port has
+    no elastic runtime yet: the change leaves ``fit`` with the data plane
+    stopped, where the reference resyncs and replays the step.
+    ``.get`` keeps fake monitors without an ``escalate`` key working."""
+
+    def may_vote(self, loop) -> bool:
+        """Whether the next ``observe`` can return a skip: the real
+        monitor skips only past its warm-up (5 observations) with the
+        shrink at its floor and skips left. A scripted monitor can vote
+        at any attempt."""
+        mon = loop.exp.monitor
+        if not isinstance(mon, StragglerMonitor):
+            return True
+        st = mon.state
+        return (st.count >= 5 and st.b_scale <= mon.min_b_scale
+                and st.skips < mon.max_skips)
+
+    def on_step_timed(self, loop, step, attempt, dt):
+        action = loop.exp.monitor.observe(dt)
+        if action.get("escalate"):
+            own = loop.exp.sampler.store.ownership
+            raise MembershipChange(MembershipEvent(
+                kind="straggler", step=step,
+                members=tuple(getattr(own, "members", range(own.n_hosts))),
+                reason=f"host over deadline for {attempt + 1} attempts "
+                       f"with shrink floored and skip budget spent"))
+        return bool(action["skip"])

@@ -1,5 +1,6 @@
 """The selection plane's collectives at one host
-(``repro.distributed.collectives``, the calls the sampler makes).
+(``repro.distributed.collectives``, the calls the sampler and the
+loop's retry vote make).
 
 Each collective counts its call and this host's payload bytes at entry
 (``collectives.<name>.calls`` / ``.bytes``, inert unless telemetry is
@@ -78,3 +79,15 @@ def exchange_topk(candidates, *, k_each: int, n_hosts=1):
                              f"{k_each} (blocks must be padded)")
     return allgather_rows(candidates, n_rows=int(k_each) * int(n_hosts),
                           n_hosts=n_hosts)
+
+
+def allreduce_any(flag, *, n_hosts=1) -> bool:
+    """Global OR of one per-host boolean — the lockstep vote primitive.
+    A host-local decision that re-dispatches device work (the straggler
+    retry vote, derived from this host's wall clock) must take the same
+    branch on every host, or a host re-enters the step's collectives
+    alone. One bool per step; the identity at one host."""
+    local = np.asarray([bool(flag)])
+    _note_collective("allreduce_any", local)
+    _single_host("allreduce_any", n_hosts)
+    return bool(flag)

@@ -5,10 +5,19 @@
         --obs.dir=runs/obs --ckpt_dir=runs/ckpt
     python -m repro_torch.launch.train --arch lm-tiny --preset prod \
         --sampler.scheme=history --imp.selection_impl=sharded --steps=8
+    python -m repro_torch.launch.train --arch lm-tiny --preset prod \
+        --data.prefetch_depth=3 --data.device_put=true --steps=8
 
 Flags: reserved ``--arch/--preset/--smoke/--source/--device`` plus dotted
 ``RunConfig`` overrides; unknown keys are hard errors. Runs on the GPU
 unless ``--device cpu`` is given.
+
+Data: the depth-N data plane (``--data.prefetch_depth=N``, default 2)
+pipelines plan → gather → host-to-card copy behind the update step for
+the pure-plan schemes (``uniform``, ``presample``); ``--data.device_put=
+false`` leaves the copy to the step. Faults: ``--runtime.faults.enabled=
+true --runtime.faults.spec='gather@4;slow@5:0:0.4'`` injects a gather
+error and a straggler (the loop retries the step).
 
 Resume: with ``--ckpt_dir`` the run starts from the newest committed
 checkpoint in that directory (the train state, the score memory and the

@@ -138,7 +138,11 @@ def test_import_boundary():
                 "repro_torch.checkpoint.interop",
                 "repro_torch.obs.health",
                 "repro_torch.obs.hook",
-                "repro_torch.obs.sinks"):
+                "repro_torch.obs.sinks",
+                "repro_torch.data.pipeline",
+                "repro_torch.runtime.faults",
+                "repro_torch.runtime.membership",
+                "repro_torch.runtime.straggler"):
         assert mod in out["modules"], mod
     assert len(out["modules"]) >= 40
     # and statically, so a lazy import inside a function is caught too
