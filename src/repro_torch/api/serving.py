@@ -7,10 +7,20 @@ caches and decodes greedily against them, all under
     import repro_torch
     out = repro_torch.serve("llama3.2-3b", batch=8, prompt_len=4096, gen=64)
 
-The caches are global (one slot per position, ``cap >= prompt_len + gen``)
-and filled from slot 0, so every step passes its position offset down and
-attention runs through the flash kernel (``LM.serve_step``'s
-``q_offset``). Sharded serving (``mesh=``) is not ported yet.
+Global layers' caches hold one slot per position (``cap >= prompt_len +
+gen``) and are filled from slot 0; sliding-window layers (gemma3's
+``attn_local``) keep a ring of ``min(cap, sliding_window)`` slots. Prefill
+passes ``q_offset=0`` and decode step i ``prompt_len + i``; each layer
+decides from that and its cache whether attention on the card runs
+through the flash kernel (``LM.serve_step``, ``attention.flash_route``):
+always for global caches, and for rings unless the prompt is longer than
+the ring. Such a prompt's prefill takes the plain paths in the rings, and
+so does every decode step after it unless the prompt's length is a
+multiple of the ring's: its last keys then sit at slots out of step with
+their positions, which only the stored positions mask right. The
+reference keeps only a long prompt's last ``sliding_window`` keys in a
+ring, so its early queries see no key; the port reproduces that on the
+plain paths. Sharded serving (``mesh=``) is not ported yet.
 """
 from __future__ import annotations
 
@@ -72,8 +82,8 @@ def serve(cfg="lm-tiny", *, params=None, prompts=None, batch=2,
         # caller-supplied prompts define the cache geometry
         prompts = torch.as_tensor(np.asarray(prompts))
         batch, prompt_len = prompts.shape
-    # the cache must hold prompt + every generated token (a smaller cap
-    # would clamp decode's insert onto the last slot)
+    # a global cache must hold prompt + every generated token (a smaller
+    # cap would clamp decode's insert onto the last slot); rings wrap
     cap = cap or prompt_len + gen
     if cap < prompt_len + gen:
         raise ValueError(f"cap={cap} cannot hold prompt_len={prompt_len} "

@@ -1,7 +1,9 @@
 """Architecture registry: ``get_config(arch_id)`` / ``--arch <id>``.
 
-The port carries the architectures its slices run; the others wait for
-the slice that ports their block kinds.
+The port carries the architectures its slices run, in the reference's
+order: every dense-attention architecture with token input (global and
+sliding-window GQA). The others wait for the slice that ports their
+block kinds (MoE, MLA, SSM, xLSTM) or input modes.
 """
 from __future__ import annotations
 
@@ -12,7 +14,11 @@ from repro_torch.configs.base import (ISConfig, ModelConfig, OptimConfig,
                                       Segment, ShapeConfig, reduced)
 
 ARCHS = (
+    "internlm2-20b",
+    "yi-34b",
     "llama3.2-3b",
+    "gemma3-12b",
+    "lm-100m",
     "lm-tiny",
 )
 

@@ -135,6 +135,16 @@ class ModelConfig:
         quad = {ATTN, ATTN_MLA} & ks
         return not quad or ks <= {MAMBA2, MLSTM, SLSTM, ATTN_LOCAL, SHARED_ATTN}
 
+    def param_count(self) -> int:
+        """Analytic parameter count (embeddings + blocks), used for roofline
+        MODEL_FLOPS = 6 N D."""
+        from repro_torch.models.counting import count_params
+        return count_params(self)
+
+    def active_param_count(self) -> int:
+        from repro_torch.models.counting import count_params
+        return count_params(self, active_only=True)
+
 
 # ---------------------------------------------------------------------------
 # Input shapes (the assigned 4-cell set for LM transformers)

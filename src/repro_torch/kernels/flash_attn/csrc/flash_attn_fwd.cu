@@ -25,7 +25,7 @@
 // scoring at hd = 128 (the wrapper's kernel_for rule: at least 64 query
 // rows, TMA-aligned q, k, v); this kernel serves decode (sq = 1, the kv
 // range split), f32 (lm-tiny), the other bf16 head dims and calls not
-// aligned for TMA.
+// aligned for TMA; every bf16 call at hd 256 (gemma3) comes here.
 //
 // Bound: at decode (sq = 1) reading the cache once is the bound; a
 // prefill (4*b*hq*hd*sum_i(i+1) flop) is compute-bound.
@@ -34,6 +34,12 @@
 //     P V; K and V tiles stream through a 2-stage cp.async ring in shared
 //     memory (zero-filled past skv); the P tile stays in registers (the
 //     accumulator fragment of S is the A fragment of P V). Softmax in f32.
+//     Up to hd 128 each warp keeps its Q fragments in registers for the
+//     whole sweep and a kv tile is 64 keys. At hd 256 (gemma3) the output
+//     accumulator alone is 128 registers a thread, so the block's Q is
+//     staged once in shared memory (64 rows x 256, 33 KB) and its
+//     fragments are loaded per 16-column step, and a kv tile is 32 keys
+//     (the S tile 16 registers, not 32): about 100 KB of shared memory.
 //   * f32: plain f32 FMA (no TF32), one key per lane, for the reference's
 //     2e-4 tolerance; shapes this small-model path serves are tiny.
 //   * tiles wholly above the causal diagonal or before the window of every
@@ -168,22 +174,30 @@ __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
+// The bf16 kernel's tiling at head dim HD (see the header).
 template <int HD>
-constexpr int bf16_smem_bytes() {
-  return 2 * 2 * 64 * (HD + 8) * 2;  // K and V, 2 stages, 64 keys, padded
-}
+struct Bf16Tiles {
+  static constexpr bool kQSmem = HD > 128;       // Q staged in shared memory
+  static constexpr int BK = HD > 128 ? 32 : 64;  // keys per kv tile
+  static constexpr int LD = HD + 8;  // smem row stride in bf16: conflict-free
+  // K and V, 2 stages of BK keys, then the block's Q rows when staged
+  static constexpr int kSmemBytes =
+      (2 * 2 * BK + (kQSmem ? kRows : 0)) * LD * 2;
+};
 
 // Each warp owns 16 packed rows; thread (grp = lane/4, tig = lane%4) holds
 // rows grp and grp + 8 of them, as the m16n8k16 fragments lay them out.
 template <int HD>
 __global__ void __launch_bounds__(kThreads)
 flash_bf16_kernel(const Problem p) {
-  constexpr int BK = 64;
-  constexpr int LD = HD + 8;  // smem row stride in bf16: conflict-free
+  using T = Bf16Tiles<HD>;
+  constexpr int BK = T::BK;
+  constexpr int LD = T::LD;
   using bf16 = __nv_bfloat16;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* ks = reinterpret_cast<bf16*>(smem_raw);  // [2][BK][LD]
   bf16* vs = ks + 2 * BK * LD;                   // [2][BK][LD]
+  bf16* qsm = vs + 2 * BK * LD;                  // [kRows][LD] (kQSmem)
 
   const int row0 = blockIdx.x * kRows;
   const int bh = blockIdx.y;
@@ -203,9 +217,23 @@ flash_bf16_kernel(const Problem p) {
   const bf16* vbase = static_cast<const bf16*>(p.v) + bi * p.vs_b +
                       (long long)kvh * p.vs_h;
 
-  // Q fragments, kept in registers for the whole kv sweep
-  uint32_t qf[HD / 16][4];
-  {
+  // Q fragments, kept in registers for the whole kv sweep (hd <= 128), or
+  // the block's Q rows staged in shared memory (hd 256)
+  uint32_t qf[T::kQSmem ? 1 : HD / 16][4];
+  if constexpr (T::kQSmem) {
+    const bf16* q = static_cast<const bf16*>(p.q);
+    constexpr int WPR = HD / 2;  // 4-byte words a row (q is 4-byte aligned)
+    for (int c = threadIdx.x; c < kRows * WPR; c += kThreads) {
+      const int r = c / WPR, col = (c % WPR) * 2;
+      const int row = row0 + r;
+      *reinterpret_cast<uint32_t*>(qsm + r * LD + col) =
+          row < nrows
+              ? ld32(q + row_offset(p, p.qs_b, p.qs_s, p.qs_h, bi, kvh, row) +
+                     col)
+              : 0u;
+    }
+    __syncthreads();
+  } else {
     const bf16* q = static_cast<const bf16*>(p.q);
     const bf16* qA =
         rA < nrows ? q + row_offset(p, p.qs_b, p.qs_s, p.qs_h, bi, kvh, rA)
@@ -263,10 +291,21 @@ flash_bf16_kernel(const Problem p) {
       for (int n = 0; n < BK / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
 #pragma unroll
       for (int kk = 0; kk < HD / 16; ++kk) {
+        uint32_t qa[4];
+        if constexpr (T::kQSmem) {
+          const bf16* qr = qsm + (warp * 16 + grp) * LD + kk * 16 + tig * 2;
+          qa[0] = ld32(qr);
+          qa[1] = ld32(qr + 8 * LD);
+          qa[2] = ld32(qr + 8);
+          qa[3] = ld32(qr + 8 * LD + 8);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) qa[e] = qf[kk][e];
+        }
 #pragma unroll
         for (int n = 0; n < BK / 8; ++n) {
           const bf16* kr = K + (n * 8 + grp) * LD + kk * 16 + tig * 2;
-          mma_bf16(s[n], qf[kk], ld32(kr), ld32(kr + 8));
+          mma_bf16(s[n], qa, ld32(kr), ld32(kr + 8));
         }
       }
       // scale, mask, tile max per row
@@ -555,7 +594,7 @@ int set_smem(K kernel, int bytes) {
 
 template <int HD>
 int launch_bf16(const Problem& p, dim3 grid, cudaStream_t st) {
-  constexpr int bytes = bf16_smem_bytes<HD>();
+  constexpr int bytes = Bf16Tiles<HD>::kSmemBytes;
   static int attr = set_smem(flash_bf16_kernel<HD>, bytes);
   if (attr != 0) return attr;
   flash_bf16_kernel<HD><<<grid, kThreads, bytes, st>>>(p);
@@ -575,8 +614,8 @@ int launch_f32(const Problem& p, dim3 grid, cudaStream_t st) {
 
 // q (b, sq, hq, hd), k/v (b, skv, hkv, hd), o (b, sq, hq, hd), all with a
 // unit stride on hd; strides in elements. dtype: 0 = float32, 1 = bfloat16
-// (bf16 needs hd in {16, 32, 64, 128} and 16-byte aligned k/v rows; f32
-// takes hd <= 128). nsplit > 1 needs part_o (nsplit*b*hkv*sq*g*hd f32) and
+// (bf16 needs hd in {16, 32, 64, 128, 256} and 16-byte aligned k/v rows;
+// f32 takes hd <= 128). nsplit > 1 needs part_o (nsplit*b*hkv*sq*g*hd f32) and
 // part_m, part_l (nsplit*b*hkv*sq*g f32) as scratch. Returns the
 // cudaError_t of the launches (0 = cudaSuccess).
 extern "C" int flash_attn_fwd_launch(
@@ -589,7 +628,7 @@ extern "C" int flash_attn_fwd_launch(
     void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (b <= 0 || sq <= 0 || skv <= 0 || hkv <= 0 || hq % hkv != 0 ||
-      nsplit < 1 || hd > 128 || hd <= 0)
+      nsplit < 1 || hd > (dtype == 1 ? 256 : 128) || hd <= 0)
     return (int)cudaErrorInvalidValue;
   Problem p;
   p.q = q; p.k = k; p.v = v; p.o = o;
@@ -610,6 +649,7 @@ extern "C" int flash_attn_fwd_launch(
       case 32: err = launch_bf16<32>(p, grid, st); break;
       case 64: err = launch_bf16<64>(p, grid, st); break;
       case 128: err = launch_bf16<128>(p, grid, st); break;
+      case 256: err = launch_bf16<256>(p, grid, st); break;
       default: return (int)cudaErrorInvalidValue;
     }
   } else {

@@ -10,7 +10,8 @@ registered together as ``torch.ops.repro_torch.flash_attention``:
   ``WGMMA_MIN_ROWS`` query rows and TMA-aligned q, k and v;
 * ``mma`` (``csrc/flash_attn_fwd.cu``, library ``LIB``): everything else
   the port calls, decode (one query row, the kv range split over blocks),
-  f32 and the other bf16 head dims, on ``mma.sync``.
+  f32 and the other bf16 head dims (16, 32, 64, and 256 for gemma3, whose
+  block stages Q in shared memory), on ``mma.sync``.
 
 ``kernel_for`` is the dispatch rule, a pure function of dtype, shape and
 alignment; ``plan`` checks a call and names its kernel. Each library is
@@ -36,9 +37,8 @@ SOURCES = (Path(__file__).with_name("csrc") / "flash_attn_fwd.cu",)
 LIB_WGMMA = "flash_attn_fwd_wgmma"      # the wgmma kernel's library
 SOURCES_WGMMA = (Path(__file__).with_name("csrc") / "flash_attn_fwd_wgmma.cu",)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_BF16_HD = (16, 32, 64, 128)
+_BF16_HD = (16, 32, 64, 128, 256)
 _ROWS = 64                              # packed query rows per block
-_TILE = {torch.bfloat16: 64, torch.float32: 32}   # keys per kv tile
 _MAX_SPLIT = 32
 WGMMA_MIN_ROWS = 64                     # query rows: half a work tile
 
@@ -121,6 +121,13 @@ def _check_rows_have_keys(sq, skv, causal, window, q_offset):
         raise ValueError(
             f"query rows without a valid key (sq={sq}, skv={skv}, "
             f"causal={causal}, window={window}, q_offset={q_offset})")
+
+
+def _tile(dtype, hd: int) -> int:
+    """Keys per kv tile of the mma kernel (``Bf16Tiles`` in its source)."""
+    if dtype == torch.float32:
+        return 32
+    return 32 if hd > 128 else 64
 
 
 def _split(rows: int, bhkv: int, skv: int, tile: int, sms: int) -> int:
@@ -207,7 +214,7 @@ def flash_attention_cuda(q: Tensor, k: Tensor, v: Tensor, causal: bool,
         launches_by_kernel["wgmma"] += 1
         return o
     rows = sq * (hq // hkv)
-    nsplit = _split(rows, b * hkv, skv, _TILE[q.dtype],
+    nsplit = _split(rows, b * hkv, skv, _tile(q.dtype, hd),
                     _sm_count(dev.index if dev.index is not None
                               else torch.cuda.current_device()))
     if nsplit > 1:

@@ -2,11 +2,13 @@
 
     python -m repro_torch.launch.serve --arch llama3.2-3b --shape decode_32k
     python -m repro_torch.launch.serve --arch lm-tiny --smoke --device cpu
+    python -m repro_torch.launch.serve --arch gemma3-12b --smoke --device cpu
 
-Flags: ``--arch`` (required), ``--shape`` (a serving cell, default
-``decode_32k``), ``--gen``, ``--smoke`` (CPU-scale model, batch 2, prompt
-32, cap 128) and ``--device``. Runs on the GPU unless ``--device cpu`` is
-given. ``--mesh`` is refused: sharded serving is not ported yet.
+Flags: ``--arch`` (required: any arch of ``repro_torch.configs.ARCHS``;
+gemma3-12b serves its sliding-window layers from rings), ``--shape`` (a
+serving cell, default ``decode_32k``), ``--gen``, ``--smoke`` (CPU-scale
+model, batch 2, prompt 32, cap 128) and ``--device``. Runs on the GPU
+unless ``--device cpu`` is given. ``--mesh`` is refused: sharded serving is not ported yet.
 """
 from __future__ import annotations
 

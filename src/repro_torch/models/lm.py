@@ -205,10 +205,18 @@ class LM(Transformer):
         caches; decode = s == 1 into filled caches, updated in place.
         Returns (logits of the last position (b, 1, V), caches).
 
-        ``q_offset`` is also the caller's word that every cache slot below
-        it holds its own position (a global cache filled from 0, as
-        ``repro_torch.serve`` keeps it); then attention on the card runs
-        through the flash kernel (``attention.attention_op``). Explicit
+        ``q_offset`` is also the caller's word about *global* caches: every
+        slot below it holds its own position (filled from slot 0, as
+        ``repro_torch.serve`` keeps them); then their attention on the card
+        runs through the flash kernel. A sliding-window layer's ring
+        decides from its own capacity and from whether every write put
+        position p at slot p % capacity, which it tracks from ``q_offset``
+        (``attention.ring_write_in_order``): before the wrap it holds the
+        same word, after it (one token at a time, a ring of
+        ``sliding_window`` slots written in order) every slot is valid.
+        The prefill of a prompt longer than the ring, and every decode step
+        after it unless the prompt's length is a multiple of the ring's,
+        take the plain paths (``attention.flash_route``). Explicit
         positions take the plain paths, which read the masks from them."""
         x = self.embed_inputs(batch)
         positions = batch.get("positions")

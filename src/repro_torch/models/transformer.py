@@ -1,14 +1,18 @@
-"""The decoder stack (ATTN-only segments).
+"""The decoder stack: segments of global and sliding-window GQA blocks.
 
-A model is a sequence of ``Segment``s. The reference stacks each pattern
-position's parameters on a leading axis and ``lax.scan``s over them; the
-port keeps one module per layer and loops (``stacked.p<i>`` is a
-``ModuleList`` over the segment's repeats), so the per-layer modules map
-onto the stacked checkpoint leaves by their index
-(``repro_torch.checkpoint.interop``). ``RunConfig.remat`` checkpoints each
-block with ``torch.utils.checkpoint``. Decode caches follow the same
-layout: ``caches["seg<i>"]["p0"][layer]`` is layer ``layer``'s cache
-(``attention.cache_init``), updated in place by the forward.
+A model is a sequence of ``Segment``s; a segment applies its ``pattern``
+of block kinds ``repeats`` times. The reference stacks each pattern
+position's parameters on a leading axis and ``lax.scan``s over the
+repeats; the port keeps one module per layer (``stacked.p<i>`` is a
+``ModuleList`` over the segment's repeats) and loops **repeat-major**, as
+the reference's scan body does: for each repeat, every pattern position in
+order (gemma3's ``(attn_local,)*5 + (attn,)`` runs five local layers, then
+a global one, eight times). The per-layer modules map onto the stacked
+checkpoint leaves by their index (``repro_torch.checkpoint.interop``).
+``RunConfig.remat`` checkpoints each block with
+``torch.utils.checkpoint``. Decode caches follow the same layout:
+``caches["seg<s>"]["p<i>"][r]`` is the cache of pattern position i in
+repeat r (``attention.cache_init``), updated in place by the forward.
 """
 from __future__ import annotations
 
@@ -16,21 +20,31 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ATTN, ModelConfig
+from repro_torch.configs.base import (ATTN, ATTN_LOCAL, ATTN_MLA, MAMBA2,
+                                      MLSTM, SHARED_ATTN, SLSTM,
+                                      ModelConfig)
 from repro_torch.models.attention import GQA, cache_init
 from repro_torch.models.common import (RMSNorm, dtype_of, embed_init,
                                        dense_init)
 from repro_torch.models.mlp import MLP
 
 
-class Block(nn.Module):
-    """Pre-norm attention block + gated FFN, both with residuals."""
+# the slice that ports each block kind the port does not have yet
+_LATER = {ATTN_MLA: "the MLA slice (deepseek-v2)",
+          SHARED_ATTN: "the SSM slice (zamba2's shared attention)",
+          MAMBA2: "the SSM slice (zamba2)",
+          MLSTM: "the xLSTM slice", SLSTM: "the xLSTM slice"}
 
-    def __init__(self, cfg: ModelConfig, device, gen):
+
+class Block(nn.Module):
+    """Pre-norm attention block (global or sliding-window GQA) + gated FFN,
+    both with residuals."""
+
+    def __init__(self, cfg: ModelConfig, kind, device, gen):
         super().__init__()
         dt = dtype_of(cfg)
         self.norm1 = RMSNorm(cfg.d_model, cfg.norm_eps, dt, device)
-        self.inner = GQA(cfg, device, gen)
+        self.inner = GQA(cfg, kind, device, gen)
         self.norm2 = RMSNorm(cfg.d_model, cfg.norm_eps, dt, device)
         self.ffn = MLP(cfg, device, gen)
 
@@ -43,26 +57,40 @@ class Block(nn.Module):
 class Segment(nn.Module):
     def __init__(self, cfg: ModelConfig, seg, device, gen):
         super().__init__()
-        if tuple(seg.pattern) != (ATTN,) or seg.dense_ffn \
-                or cfg.moe.n_experts or not cfg.d_ff:
+        for kind in seg.pattern:
+            if kind not in (ATTN, ATTN_LOCAL):
+                raise NotImplementedError(
+                    f"segment {seg} of {cfg.name}: {kind!r} blocks are "
+                    f"not ported yet; {_LATER.get(kind, 'a later slice')} "
+                    f"ports them")
+        if cfg.moe.n_experts or seg.dense_ffn:
             raise NotImplementedError(
-                f"segment {seg} of {cfg.name}: only dense ATTN segments "
-                f"are ported yet")
-        self.stacked = nn.ModuleDict({"p0": nn.ModuleList(
-            Block(cfg, device, gen) for _ in range(seg.repeats))})
+                f"segment {seg} of {cfg.name}: MoE FFNs are not ported "
+                f"yet; the MoE slice (granite-moe-3b-a800m) ports them")
+        if not cfg.d_ff:
+            raise NotImplementedError(
+                f"segment {seg} of {cfg.name}: blocks without an FFN are "
+                f"not ported yet")
+        self.stacked = nn.ModuleDict({
+            f"p{pi}": nn.ModuleList(Block(cfg, kind, device, gen)
+                                    for _ in range(seg.repeats))
+            for pi, kind in enumerate(seg.pattern)})
 
     def forward(self, x, positions, remat=False, impl="auto", caches=None,
                 q_offset=None):
-        """The segment's layers in order (the reference's ``apply_segment``);
-        ``caches`` is this segment's ``{"p0": [cache per layer]}``."""
-        for i, block in enumerate(self.stacked["p0"]):
-            cache = None if caches is None else caches["p0"][i]
-            if remat and torch.is_grad_enabled() and cache is None:
-                x = checkpoint(block, x, positions, impl, None, q_offset,
-                               use_reentrant=False)
-            else:
-                x = block(x, positions, impl=impl, cache=cache,
-                          q_offset=q_offset)
+        """The segment's layers, repeat-major (the reference's
+        ``apply_segment``); ``caches`` is this segment's
+        ``{"p<i>": [cache per repeat]}``."""
+        for r in range(len(self.stacked["p0"])):
+            for name, blocks in self.stacked.items():
+                block = blocks[r]
+                cache = None if caches is None else caches[name][r]
+                if remat and torch.is_grad_enabled() and cache is None:
+                    x = checkpoint(block, x, positions, impl, None, q_offset,
+                                   use_reentrant=False)
+                else:
+                    x = block(x, positions, impl=impl, cache=cache,
+                              q_offset=q_offset)
         return x
 
 

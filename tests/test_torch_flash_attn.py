@@ -219,6 +219,8 @@ def test_forward_only_route_is_chosen_on_cuda(cuda, monkeypatch):
     ("bfloat16", 128, 333, False, "mma"),
     ("bfloat16", 64, 1024, True, "mma"),      # other head dims
     ("bfloat16", 32, 64, True, "mma"),
+    ("bfloat16", 256, 1024, True, "mma"),     # gemma3: hd 256
+    ("bfloat16", 256, 1, True, "mma"),
     ("float32", 128, 1024, True, "mma"),      # f32
     ("float32", 16, 64, True, "mma"),         # lm-tiny
 ])
@@ -260,6 +262,11 @@ def test_plan_names_the_kernel_from_the_tensors():
     qs = torch.zeros(2, 128, 6, 132, dtype=torch.bfloat16)[..., :128]
     assert plan(qs, k, v) == "mma"
     assert plan(q.float(), k.float(), v.float()) == "mma"
+    # gemma3's head dim: the mma kernel, prefill and decode
+    q256 = torch.zeros(2, 128, 16, 256, dtype=torch.bfloat16)
+    ring = torch.zeros(2, 1024, 8, 256, dtype=torch.bfloat16)
+    assert plan(q256, ring[:, :128], ring[:, :128]) == "mma"
+    assert plan(q256[:, :1], ring, ring) == "mma"
 
 
 @pytest.mark.parametrize("case", ["bf16 hd 80", "f32 hd 256",
@@ -417,3 +424,43 @@ def test_cuda_call_neither_kernel_takes_raises(cuda, case):
     with pytest.raises(ValueError):
         flash_attention(q, k, k)
     assert k5.launches == before
+
+
+# --- hd 256 (gemma3-12b: 16/8 heads, sliding window 1024) ------------------
+HD256_CASES = [
+    # b, sq, skv, window, q_offset, cache slots, causal, q scale
+    (8, 1024, 1024, 1024, 0, 0, True, 1.0),     # prefill, window = sq
+    (8, 1024, 1024, 0, 0, 0, True, 1.0),        # global layer's prefill
+    (8, 1024, 1024, 1024, 0, 0, True, 6.0),     # peaked
+    (2, 4096, 4096, 1024, 0, 0, True, 1.0),     # the window cuts
+    (8, 1, 701, 1024, 700, 1024, True, 1.0),    # decode before the wrap
+    (8, 1, 1024, 0, 0, 0, False, 1.0),          # decode over a full ring
+    (8, 1, 1024, 0, 0, 0, False, 6.0),
+    (2, 77, 177, 64, 100, 300, True, 1.0),      # ragged, offset, window
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,sq,skv,window,q_offset,slots,causal,q_scale",
+                         HD256_CASES)
+def test_hd256_kernel_matches_plain_on_gpu(cuda, b, sq, skv, window,
+                                           q_offset, slots, causal, q_scale):
+    """K5 at hd 256 in bf16 (the mma kernel, Q staged in shared memory)
+    against its plain version in f32 on the same inputs, at the shapes of
+    ``chip_smoke.py``'s phase 23: within 3e-2 of every output and 1.5e-2
+    of each row's largest |output|, the mma count alone moving."""
+    from repro_torch.kernels.flash_attn import flash_attn as k5
+    q, k, v = (torch.from_numpy(t).to(cuda, torch.bfloat16) for t in
+               _qkv(b, sq, max(skv, slots), 16, 8, 256, seed=sq + skv))
+    q = (q.float() * q_scale).to(torch.bfloat16)
+    k, v = k[:, :skv], v[:, :skv]
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    before = dict(k5.launches_by_kernel)
+    got = flash_attention(q, k, v, **kw)
+    assert k5.launches_by_kernel == dict(before, mma=before["mma"] + 1)
+    want = torch.cat([flash_attention(q[i:i + 2].float(), k[i:i + 2].float(),
+                                      v[i:i + 2].float(), interpret=True,
+                                      **kw) for i in range(0, b, 2)])
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want, rtol=3e-2, atol=3e-2)
+    assert _row_rel_err(got, want) <= ROW_REL["bfloat16"]

@@ -142,7 +142,14 @@ def test_import_boundary():
                 "repro_torch.data.pipeline",
                 "repro_torch.runtime.faults",
                 "repro_torch.runtime.membership",
-                "repro_torch.runtime.straggler"):
+                "repro_torch.runtime.straggler",
+                "repro_torch.models.attention",
+                "repro_torch.models.counting",
+                "repro_torch.models.transformer",
+                "repro_torch.configs.gemma3_12b",
+                "repro_torch.configs.internlm2_20b",
+                "repro_torch.configs.yi_34b",
+                "repro_torch.configs.lm_100m"):
         assert mod in out["modules"], mod
     assert len(out["modules"]) >= 40
     # and statically, so a lazy import inside a function is caught too
