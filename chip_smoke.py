@@ -162,8 +162,9 @@ Phases, in order; each raises on failure, so the process exits non-zero:
               also under each of its fused backends that runs (flash,
               cuDNN, efficient), in turns over three rounds. CUDA events
               time the prefill shapes and K1; the decode shape is timed by
-              its device activity under the profiler, since a launch there
-              is shorter than its dispatch.
+              its device time (``_device_ms``: CUDA events around calls
+              queued behind a spin kernel), since a launch there is shorter
+              than its dispatch.
 
 19. pool_select — the one launch that computes K2 and K3 and the
               selection they feed (``pool_select_cuda``), at cell E's pool
@@ -204,28 +205,37 @@ Phases, in order; each raises on failure, so the process exits non-zero:
               the same candidates;
 22. pool_select timing — the launch at cell E's pool (k 4) and prod's
               (768, 4096, k 256) (inputs rotated through copies that exceed
-              the L2 cache), ``select_pool`` at cell E's pool (device time
-              under the profiler: a launch is shorter than its dispatch;
-              CUDA events around a loop of calls beside), the one-launch
+              the L2 cache), ``select_pool`` at cell E's pool (device time,
+              ``_device_ms``: a launch is shorter than its dispatch; CUDA
+              events around an unqueued loop of calls beside), the one-launch
               floor (a one-element ``zero_()``, the same way),
               ``fused_presample`` and its K1 stage at cell E's pool (CUDA
-              events), each beside its plain version and its bound.
+              events), each beside its plain version (CUDA events: a plain
+              selection waits for the card) and its bound.
 
-23. K5 hd 256 — the mma.sync kernel at gemma3's head dim (16/8 heads of
-              256; its block's Q staged in shared memory, 32-key tiles),
-              each case against the f32 plain version within the unchanged
+23. K5 hd 256 — K5 at gemma3's head dim (16/8 heads of 256), each case
+              against the f32 plain version within the unchanged
               ``K5_TOL``/``K5_ROW_REL``, the dispatch rule's kernel count
-              moving, a second launch the same bits: the prefill (8, 1024)
-              with window 1024 and global, peaked; (2, 4096) with window
-              1024 (the window cuts); decode at 700 over a 1024-slot ring
+              moving, a second launch the same bits. On the wgmma kernel
+              (``flash_attn_fwd_wgmma256.cu``): the prefill (8, 1024) with
+              window 1024 and global, peaked, over a 1088-slot cache's
+              prefix view; (2, 4096) with window 1024 (the window cuts); a
+              ragged (2, 77) at offset 100 over a 300-slot cache; (12, 200)
+              over a cache, window 64, scale 0.2. On the mma.sync kernel
+              (Q staged in shared memory, 32-key tiles): the prefill with q
+              off TMA's alignment; decode at 700 over a 1024-slot ring
               before the wrap; decode over a full 1024-slot ring, not
-              causal, and peaked; a ragged windowed block at an offset; one
-              hd-128 case with window 256 < sq (wgmma). The build's
-              registers and spills at hd 256 are logged;
-23b. K5 hd 256 timing — gemma3's prefill (CUDA events) and decode over
-              a full ring (device activity), each beside its plain version,
-              its bound and ``scaled_dot_product_attention`` under each
-              backend that takes hd 256;
+              causal, and peaked. One hd-128 case with window 256 < sq
+              (wgmma). Both hd-256 kernels' registers and spills are
+              logged, and the wgmma one must have no spills;
+23b. K5 hd 256 timing — gemma3's prefill (8, 1024) and (2, 4096) with
+              the window of 1024 on both kernels (the mma kernel on an
+              off-TMA copy of q), by CUDA events (the rows' ms) and by
+              device time (``_device_ms``), with TFLOP/s and the share of
+              the bound, and decode over a full ring (device time), each
+              beside its
+              plain version, its bound and ``scaled_dot_product_attention``
+              under each backend that takes hd 256;
 24. gemma3 reduced — ``reduced(gemma3-12b, repeats=2)`` (window 64, f32) on
               the card against the CPU from the same params: forward-only
               logits (K5 with the window), ``prod``'s steps over sequences
@@ -240,23 +250,26 @@ Phases, in order; each raises on failure, so the process exits non-zero:
 25. gemma3 serve — ``repro_torch.serve("gemma3-12b", batch=8,
               prompt_len=1024, gen=64)`` at full width and depth (48 layers,
               cuts printed); counts zeroed just before and read just after
-              (K5: 48 in the prefill and 48 in each of the 63 decode steps,
-              all the mma kernel's, rings wrapped from the first decode
-              step; K1 0); prefill and decode times, tokens/s, peak; then
-              phase 16's token check (K5 beside each plain call, the f32
+              (K5: 48 in the prefill, all the wgmma kernel's, and 48 in
+              each of the 63 decode steps, all the mma kernel's, rings
+              wrapped from the first decode step; K1 0); prefill and
+              decode times, tokens/s, peak; then phase 16's token check
+              (K5 beside each plain call, the f32
               logit drift against the re-chunked plain route's, greedy
               tokens equal where the plain route's top-two margin exceeds
               one bf16 ulp and within the re-chunking ruler at tie rows,
               serve's tokens reproduced; tie rows recorded with their
-              top-three margins and each route's flips);
+              top-three margins and each route's flips); the prefill and 4
+              decode steps under ``torch.profiler`` as phase 16's (tables
+              to ``chiprun_out/profile_gemma_serve_*.txt``);
 26. gemma3 score — ``repro_torch.score("gemma3-12b", preset="prod", ...)``
               at (8, 1024) under ``"pallas"`` (K1 once at V 262144, K5 48
-              times, mma) against ``"fused"``, as phase 17;
+              times, wgmma) against ``"fused"``, as phase 17;
 27. gemma3 train — ``repro_torch.train`` of gemma3-12b under ``prod`` at
               full width, depth cut to one repeat of its pattern (6 layers,
               2.35 B parameters, the cut printed): 4 steps, K4 8 and K5 6
-              (mma) a step, step walls and peaks, step ``PROFILED`` under
-              ``torch.profiler``;
+              (wgmma, the pool's scoring) a step, step walls and peaks,
+              step ``PROFILED`` under ``torch.profiler``;
 28. dense configs — lm-100m trained under ``prod`` at full size with the
               pool scored in f32 (K4 on f32 logits, K5's f32 kernel: 8 and
               12 a step); internlm2-20b scored at full width and depth and
@@ -612,7 +625,8 @@ CELL_A = {"shape.global_batch": BATCH, "shape.seq_len": 1024,
           "steps": STEPS, "obs.enabled": False}
 KERNEL_GROUPS = (  # first match wins; names as the profiler reports them
     ("K4 ce_score_block", ("ce_token_kernel", "row_sum_kernel")),
-    ("K5 flash_attention", ("flash_fwd_wgmma_kernel", "flash_bf16_kernel",
+    ("K5 flash_attention", ("flash_fwd_wgmma_kernel",
+                            "flash_fwd_wgmma256_kernel", "flash_bf16_kernel",
                             "flash_f32_kernel", "combine_kernel")),
     ("K1, K2/K3 ce_score, pool_select", ("ce_score_kernel",
                                          "pool_select_kernel")),
@@ -764,7 +778,7 @@ def run_slice(out):
         f"scoring forward; by kernel {k5_by}), K6 {k6.launches} (not on this "
         f"path)")
     assert launches == 8 * STEPS, "K4 was not launched 8 times per step"
-    assert k5_by == {"wgmma": N_LAYERS * STEPS, "mma": 0}, \
+    assert k5_by == _k5_counts(wgmma=N_LAYERS * STEPS), \
         "the wgmma K5 was not launched once per layer of each pool's scoring"
     breakdown = step_breakdown(hook.prof, hook.rows, out)
     streams = _h2d_streams(hook.prof, "slice")
@@ -898,7 +912,7 @@ def run_cell_a_resume(straight, smi):
     log(f"[resume] resumed steps: K4 launches {launches} "
         f"({launches / n_run:g} per step), K5 {k5_by}")
     assert launches == 8 * n_run, "K4 was not launched 8 times per step"
-    assert k5_by == {"wgmma": N_LAYERS * n_run, "mma": 0}, \
+    assert k5_by == _k5_counts(wgmma=N_LAYERS * n_run), \
         "the wgmma K5 was not launched once per layer of each pool's scoring"
 
     # 5. resumed at the final step: nothing trained, step_4 untouched
@@ -1010,8 +1024,8 @@ def run_cell_a_depth1(out, straight, breakdown6, smi):
     exp.fit(hooks=[hook])
     torch.cuda.synchronize()
     assert hook.plane["depth"] == 1, hook.plane
-    assert k4.launches == 8 * STEPS and dict(k5.launches_by_kernel) == {
-        "wgmma": N_LAYERS * STEPS, "mma": 0}
+    assert k4.launches == 8 * STEPS and dict(k5.launches_by_kernel) == \
+        _k5_counts(wgmma=N_LAYERS * STEPS)
     bitwise = _same_rows("depth 1", hook.rows, straight)
     breakdown = step_breakdown(hook.prof, hook.rows, out, "profile depth 1",
                                "profile_step_depth1")
@@ -1062,8 +1076,8 @@ def run_cell_a_depth1(out, straight, breakdown6, smi):
     assert (snap.taken, snap.restored) == (5, 1), (snap.taken, snap.restored)
     retry_bitwise = _same_rows("retry", retry.rows, straight)
     # the retried attempt scores no pool again: the counts are phase 6's
-    assert k4.launches == 8 * STEPS and dict(k5.launches_by_kernel) == {
-        "wgmma": N_LAYERS * STEPS, "mma": 0}
+    assert k4.launches == 8 * STEPS and dict(k5.launches_by_kernel) == \
+        _k5_counts(wgmma=N_LAYERS * STEPS)
     res = dict(state_bytes=state_bytes, where=snap.where,
                snapshot_s=snap.take_s, restore_s=snap.restore_s,
                attempts=[h["attempts"] for h in hist],
@@ -1483,7 +1497,13 @@ def time_k6(store):
 def _k5_zero(k5):
     """K5's counts, the total and each kernel's, set to 0."""
     k5.launches = 0
-    k5.launches_by_kernel.update(wgmma=0, mma=0)
+    k5.launches_by_kernel.update(dict.fromkeys(k5.launches_by_kernel, 0))
+
+
+def _k5_counts(**moved):
+    """K5's ``launches_by_kernel`` with ``moved``'s counts and the other
+    kernels' 0: ``wgmma`` (hd 128), ``wgmma256`` (hd 256), ``mma``."""
+    return dict(dict.fromkeys(("wgmma", "wgmma256", "mma"), 0), **moved)
 
 
 def _k5_inputs(b, sq, skv, hq, hkv, hd, dtype, gen, slots=0, q_scale=1.0):
@@ -1514,15 +1534,18 @@ def _row_rel_err(got, want):
 
 
 def _k5_case(name, kernel, shape, dtype, gen, *, window=0, q_offset=0,
-             slots=0, q_scale=1.0, scale=None, causal=True):
+             slots=0, q_scale=1.0, scale=None, causal=True, off_tma=False):
     """One K5 case on the card: the dispatch rule must send it to
     ``kernel`` (whose count alone moves); a second launch gives the same
     bits; the output is finite and within ``K5_TOL`` of the f32 plain
     version on the same inputs, and within ``K5_ROW_REL`` of each query
-    row's largest |output|."""
+    row's largest |output|. ``off_tma``: q copied off TMA's alignment
+    (``_off_tma``), which sends a prefill to the mma kernel."""
     from repro_torch.kernels.flash_attn import flash_attn as k5
     from repro_torch.kernels.flash_attn.ops import flash_attention
     q, k, v = _k5_inputs(*shape, dtype, gen, slots, q_scale)
+    if off_tma:
+        q = _off_tma(q)
     kw = dict(causal=causal, window=window, q_offset=q_offset, scale=scale)
     before = dict(k5.launches_by_kernel)
     got = flash_attention(q, k, v, **kw)
@@ -1820,9 +1843,12 @@ SERVE_CUTS = (
     "weights and caches are not cut.")
 
 
-def profile_serve(lm, prompts, toks, row, out, steps=4):
-    """Where cell C's time goes: the K5-route prefill and ``steps``
-    teacher-forced decode steps, each window under ``torch.profiler``.
+def profile_serve(lm, prompts, toks, row, out, steps=4, tag="C",
+                  fname="profile_serve"):
+    """Where a serving cell's time goes (cell ``tag``; tables to
+    ``<fname>_prefill.txt`` and ``_decode.txt``): the K5-route prefill and
+    ``steps`` teacher-forced decode steps, each window under
+    ``torch.profiler``.
     Device busy time against the unprofiled serve's prefill time and
     decode step time gives each phase's idle share; the kernel count of a
     decode step and its host-to-card copies show what the host does."""
@@ -1859,15 +1885,15 @@ def profile_serve(lm, prompts, toks, row, out, steps=4):
                          idle_share=1 - busy / ref_s,
                          device_ops=kernels, h2d_copies=h2d,
                          groups_ms={g: t * 1e3 for g, t in groups.items()})
-        log(f"[profile C] {name} (per {'step' if n > 1 else 'pass'}): device "
-            f"busy {busy * 1e3:.3f} ms of an unprofiled {ref_s * 1e3:.3f} ms"
-            f" (idle share {1 - busy / ref_s:.3f}); {kernels:g} device ops, "
-            f"{h2d:g} host-to-card copies")
+        log(f"[profile {tag}] {name} (per {'step' if n > 1 else 'pass'}): "
+            f"device busy {busy * 1e3:.3f} ms of an unprofiled "
+            f"{ref_s * 1e3:.3f} ms (idle share {1 - busy / ref_s:.3f}); "
+            f"{kernels:g} device ops, {h2d:g} host-to-card copies")
         for g, t in groups.items():
-            log(f"[profile C]   {g}: {t * 1e3:.3f} ms")
+            log(f"[profile {tag}]   {g}: {t * 1e3:.3f} ms")
         for k, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
-            log(f"[profile C]   {t / n * 1e3:9.3f} ms  {k[:90]}")
-        (out / f"profile_serve_{name}.txt").write_text(
+            log(f"[profile {tag}]   {t / n * 1e3:9.3f} ms  {k[:90]}")
+        (out / f"{fname}_{name}.txt").write_text(
             prof.key_averages().table(sort_by="self_cuda_time_total",
                                       row_limit=50))
     res["decode"]["profiled_wall_ms"] = wall / steps * 1e3
@@ -1992,8 +2018,8 @@ def _serve_cell(arch, kw, per_step_kernels, tag, cuts):
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     assert served["tokens"].shape == (b, gen)
     prefill, decode = per_step_kernels
-    want = [{"wgmma": 0, "mma": 0, prefill: n_layers}] + \
-        [{"wgmma": 0, "mma": 0, decode: n_layers}] * (gen - 1)
+    want = [_k5_counts(**{prefill: n_layers})] + \
+        [_k5_counts(**{decode: n_layers})] * (gen - 1)
     assert per_step == want, per_step
     assert k1k4.ce_score_launches == 0
     row = dict(prefill_s=served["prefill_s"], decode_s=served["decode_s"],
@@ -2063,7 +2089,7 @@ def _score_run(model, tag, n_layers, kernel, cuts, batch=8):
     k5_by = dict(k5.launches_by_kernel)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     assert (k1, k5n, k1k4.launches) == (1, n_layers, 0), (k1, k5n)
-    assert k5_by == {"wgmma": 0, "mma": 0, kernel: n_layers}, k5_by
+    assert k5_by == _k5_counts(**{kernel: n_layers}), k5_by
     gc.collect()
     torch.cuda.empty_cache()
     loss_f, sc_f = repro_torch.score(model, preset="prod",
@@ -2085,23 +2111,46 @@ def _score_run(model, tag, n_layers, kernel, cuts, batch=8):
     return k1, row
 
 
+DEVICE_TIMED = ("device time: CUDA events around calls queued behind a spin "
+                "kernel (_device_ms)")
+
+
 def _device_ms(fn, n):
-    """Device time per call of ``fn``: the sum of its device activity over
-    ``n`` calls under ``torch.profiler``, divided by n. For calls shorter
-    than the host's dispatch of them, where CUDA events around a loop time
-    the host."""
-    from torch.profiler import ProfilerActivity, profile
+    """Device time per call of ``fn``, for calls shorter than the host's
+    dispatch of them, where CUDA events around a loop time the host. A
+    spin kernel (``torch.cuda._sleep``) holds the card while the host
+    queues n calls between two CUDA events, so the card runs them back to
+    back. The start event must still be pending when the last call is
+    queued: else the spin was too short or the launch queue filled, and
+    the loop is taken again with a spin four times as long and half the
+    calls, up to three times in all; a call that waits for the card (a
+    read to the host) cannot be timed so. Not ``torch.profiler``: its windows on an
+    H100 80GB HBM3 lose the records of some launches (171 of 200 recorded,
+    73 of 100, 23 of 50, 16 of 20, also after a warm-up step)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    spin_s = 2 * (time.perf_counter() - t0) + 1e-3
+    torch.cuda.synchronize()
+    for attempt in range(3):
+        torch.cuda._sleep(int(spin_s * 2e9))    # cycles; the clock <= 2 GHz
+        start.record()
         for _ in range(n):
             fn()
+        end.record()
+        queued = not start.query()
         torch.cuda.synchronize()
-    busy = sum(_device_time(prof).values())
-    if busy == 0.0:
-        raise RuntimeError("the profiler saw no device activity")
-    return busy * 1e3 / n
+        if queued:
+            return start.elapsed_time(end) / n
+        log(f"[timing] the card reached the first of {n} calls before the "
+            f"host had queued them all (spin {spin_s * 1e3:.1f} ms): taken "
+            f"again")
+        spin_s, n = 4 * spin_s, max(1, n // 2)
+    raise RuntimeError("the host could not queue the calls ahead of the card")
 
 
 def _bound(n_bytes, n_ops, flops_per_s):
@@ -2212,8 +2261,8 @@ def time_k5(gen):
     # decode: one query at the cache's mean fill, over the cache prefix.
     # A launch takes less device time than the host needs to issue it, so
     # CUDA events around a loop of them time the host: the kernel, its
-    # plain version and the library call are timed by their device
-    # activity under the profiler (the loop's event time kept beside)
+    # plain version and the library call are timed by their device time
+    # (``_device_ms``; the unqueued loop's event time kept beside)
     off = P + SERVE["gen"] // 2 - 1
     q, k, v = _k5_inputs(8, 1, off + 1, hq, hkv, hd, torch.bfloat16, gen,
                          slots=cap)
@@ -2232,7 +2281,7 @@ def time_k5(gen):
                          kernel="mma", ms=ms, plain_ms=plain_ms,
                          library_ms=lib_ms, bound_ms=bound_ms, bound_by=by,
                          tb_per_s=n_bytes / (ms * 1e-3) / 1e12,
-                         timed_by="device activity (torch.profiler)",
+                         timed_by=DEVICE_TIMED,
                          event_loop_ms=loop_ms)
     del q, k, v, sdpa
     torch.cuda.empty_cache()
@@ -2613,7 +2662,7 @@ def run_cell_e(out):
     assert all(math.isfinite(h["loss"]) for h in history), history
     assert all(h["is_active"] == 1.0 for h in history), history
     assert k5n == N_LAYERS * STEPS, k5n
-    assert k5_by == {"wgmma": N_LAYERS * STEPS, "mma": 0}, k5_by
+    assert k5_by == _k5_counts(wgmma=N_LAYERS * STEPS), k5_by
     assert (k1, ps, k4, k6n) == (0, 0, 0, 0)
     for r in hook.rows:
         assert math.isfinite(r["w_min"]) and r["w_min"] > 0, r
@@ -2696,10 +2745,11 @@ def run_cell_e(out):
 def time_pool_select(gen):
     """Phase 22: the pool_select launch at cell E's and prod's pools,
     select_pool and the fused op per call, beside their plain versions and
-    bounds, and the one-launch floor. A pool_select launch, and the plain
-    selection, take less device time than the host needs to issue them, so
-    their time is their device activity under the profiler (CUDA events
-    around a loop of calls kept beside); the fused op by CUDA events."""
+    bounds, and the one-launch floor. A pool_select launch takes less
+    device time than the host needs to issue it, so its time is its device
+    time (``_device_ms``; CUDA events around an unqueued loop of calls kept
+    beside). The plain selections wait for the card inside a call, so they
+    cannot be queued ahead of it: they, and the fused op, by CUDA events."""
     from repro_torch.kernels.fused_presample import fused_presample as fp
     from repro_torch.kernels.fused_presample.ops import (fused_presample,
                                                          select_pool)
@@ -2730,10 +2780,9 @@ def time_pool_select(gen):
         bound_ms, by = _bound(B * T * 5 + B * 8 + k * 16 + 8,
                               2 * B * T + 40 * B, F32_FLOPS_PER_S)
         res[f"pool_select ({B}, {T}) k {k}"] = dict(
-            ms=_device_ms(kern, 200), plain_ms=_device_ms(plain, 50),
+            ms=_device_ms(kern, 200), plain_ms=_time(plain, 50),
             l2_warm_ms=_device_ms(warm, 200), event_loop_ms=_time(kern, 200),
-            plain_event_loop_ms=_time(plain, 50), bound_ms=bound_ms,
-            bound_by=by)
+            bound_ms=bound_ms, bound_by=by)
         del sets
     B, T, V = POOL
     k = BATCH
@@ -2746,9 +2795,8 @@ def time_pool_select(gen):
     # thr written; ~40 f32 ops a row
     bound_ms, by = _bound(B * 8 + k * 16 + 8, 40 * B, F32_FLOPS_PER_S)
     res[f"select_pool ({B},) k {k}"] = dict(
-        ms=_device_ms(sk, 100), plain_ms=_device_ms(sp, 50),
-        event_loop_ms=_time(sk, 100), plain_event_loop_ms=_time(sp, 50),
-        bound_ms=bound_ms, bound_by=by)
+        ms=_device_ms(sk, 100), plain_ms=_time(sp, 50),
+        event_loop_ms=_time(sk, 100), bound_ms=bound_ms, bound_by=by)
     fk = lambda: fused_presample(z, y, rows, ctx, k=k)
     fpl = lambda: fused_presample_ref(z, y, rows, ctx, k=k)
     # the logits read once (K1), labels, the k winning rows read and
@@ -2757,8 +2805,7 @@ def time_pool_select(gen):
     n_bytes = z.numel() * 2 + B * T * 4 + 2 * k * row_bytes + B * 4 + k * 12
     bound_ms, by = _bound(n_bytes, 8 * B * T * V, F32_FLOPS_PER_S)
     # the op and its K1 stage by CUDA events only: a launch here is far
-    # longer than its dispatch, and the profiler's device-activity sum
-    # missed K1's launches late in this process (none of 5 seen)
+    # longer than its dispatch
     res[f"fused_presample ({B}, {T}, {V}) bf16 k {k}"] = dict(
         ms=_time(fk, 20), plain_ms=_time(fpl, 3), bound_ms=bound_ms,
         bound_by=by)
@@ -2773,13 +2820,11 @@ def time_pool_select(gen):
         line = (f"[timing] {name}: {r['ms']:.5f} ms ("
                 + ("device" if "event_loop_ms" in r else "CUDA events") + ")")
         if "plain_ms" in r:
-            line += f", plain {r['plain_ms']:.5f} ms"
+            line += f", plain {r['plain_ms']:.5f} ms (CUDA events)"
         line += f", bound {r['bound_ms']:.6f} ms ({r['bound_by']})"
         if "event_loop_ms" in r:
             line += (f"; CUDA events around a loop of calls "
                      f"{r['event_loop_ms']:.5f} ms")
-        if "plain_event_loop_ms" in r:
-            line += f", plain {r['plain_event_loop_ms']:.5f} ms"
         if "l2_warm_ms" in r:
             line += (f"; the same inputs every launch (L2-warm) "
                      f"{r['l2_warm_ms']:.5f} ms")
@@ -2809,33 +2854,54 @@ def _ptxas_by_kernel(report):
 
 
 def check_k5_hd256(gen):
-    """Phase 23: K5 at gemma3's head dim 256 (the mma.sync kernel, its Q
-    staged in shared memory, 32-key tiles) and a windowed hd-128 case
-    (wgmma), each against the plain version within the unchanged
-    ``K5_TOL``/``K5_ROW_REL``; the build's registers and spills at hd 256.
-    Returns (per case, the ptxas lines of the hd-256 kernel)."""
+    """Phase 23: K5 at gemma3's head dim 256, each case against the plain
+    version within the unchanged ``K5_TOL``/``K5_ROW_REL``, a second launch
+    the same bits: the prefill shapes on the wgmma kernel
+    (``flash_attn_fwd_wgmma256.cu``), the decode on the mma.sync kernel,
+    the mma kernel's prefill on an off-TMA copy of q, and a windowed hd-128
+    case (wgmma). Each case asserts which kernel took it. Both kernels'
+    registers and spills at hd 256 are logged; the wgmma one has none.
+    Returns (per case, the ptxas lines of the two hd-256 kernels)."""
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attn import flash_attn as k5
     hq, hkv, hd, w = (GEMMA[k] for k in ("hq", "hkv", "hd", "window"))
     bf = torch.bfloat16
-    report = _ptxas_by_kernel(
-        (build.BUILD_DIR / f"{k5.LIB}.log").read_text())
-    ptxas = {fn: r for fn, r in report.items() if "ILi256E" in fn}
-    assert ptxas, sorted(report)
-    log(f"[k5 hd256] ptxas, the hd-256 kernel: {ptxas}")
+    ptxas = {}
+    for lib, key in ((k5.LIB, "ILi256E"), (k5.LIB_WGMMA, "wgmma256")):
+        report = _ptxas_by_kernel(
+            (build.BUILD_DIR / f"{lib}.log").read_text())
+        found = {fn: r for fn, r in report.items() if key in fn}
+        assert found, (lib, sorted(report))
+        ptxas.update(found)
+    assert all("0 bytes spill stores, 0 bytes spill loads" in r
+               for fn, r in ptxas.items() if "wgmma256" in fn), ptxas
+    log(f"[k5 hd256] ptxas, the hd-256 kernels (mma.sync, wgmma): {ptxas}")
     q = torch.zeros(2, 64, hq, hd, dtype=bf, device="cuda")
     kv = torch.zeros(2, 64, hkv, hd, dtype=bf, device="cuda")
-    assert k5.plan(q, kv, kv) == "mma"
+    assert k5.plan(q, kv, kv) == "wgmma"
+    assert k5.plan(q[:, :1], kv, kv) == "mma"
+    assert k5.plan(_off_tma(q), kv, kv) == "mma"
     # name, kernel, (b, sq, skv, hq, hkv, hd), keywords of _k5_case
+    g3 = (8, 1024, 1024, hq, hkv, hd)
     cases = [
-        (f"gemma3 prefill (8,1024) {hq}/{hkv}x{hd}, window {w}", "mma",
-         (8, 1024, 1024, hq, hkv, hd), dict(window=w)),
-        (f"gemma3 prefill (8,1024) {hq}/{hkv}x{hd}, global", "mma",
-         (8, 1024, 1024, hq, hkv, hd), {}),
+        (f"gemma3 prefill (8,1024) {hq}/{hkv}x{hd}, window {w}", "wgmma256",
+         g3, dict(window=w)),
+        (f"gemma3 prefill (8,1024) {hq}/{hkv}x{hd}, global", "wgmma256", g3,
+         {}),
         (f"gemma3 prefill (8,1024), window {w}, q x{Q_PEAK:g} (peaked)",
-         "mma", (8, 1024, 1024, hq, hkv, hd), dict(window=w, q_scale=Q_PEAK)),
-        (f"(2,4096) {hq}/{hkv}x{hd}, window {w} (the window cuts)", "mma",
+         "wgmma256", g3, dict(window=w, q_scale=Q_PEAK)),
+        (f"gemma3 prefill (8,1024) over the 1088-slot cache's 1024-key "
+         "prefix view (as serve passes it)", "wgmma256", g3, dict(slots=1088)),
+        (f"(2,4096) {hq}/{hkv}x{hd}, window {w} (the window cuts)", "wgmma256",
          (2, 4096, 4096, hq, hkv, hd), dict(window=w)),
+        ("ragged (2,77) at offset 100 over a 300-slot cache, window 64, "
+         f"{hq}/{hkv}x{hd}", "wgmma256", (2, 77, 177, hq, hkv, hd),
+         dict(window=64, q_offset=100, slots=300)),
+        ("(12,200) at offset 256 over a 512-slot cache, window 64, scale "
+         "0.2 (blocks walk two tiles)", "wgmma256", (12, 200, 456, hq, hkv, hd),
+         dict(window=64, q_offset=256, slots=512, scale=0.2)),
+        (f"gemma3 prefill (8,1024), window {w}, q off TMA's alignment (the "
+         "mma kernel's prefill)", "mma", g3, dict(window=w, off_tma=True)),
         (f"decode (8,1) at 700 over a {w}-slot ring before the wrap",
          "mma", (8, 1, 701, hq, hkv, hd),
          dict(window=w, q_offset=700, slots=w)),
@@ -2843,9 +2909,6 @@ def check_k5_hd256(gen):
          (8, 1, w, hq, hkv, hd), dict(causal=False)),
         (f"decode (8,1) over a full {w}-slot ring, q x{Q_PEAK:g} (peaked)",
          "mma", (8, 1, w, hq, hkv, hd), dict(causal=False, q_scale=Q_PEAK)),
-        ("ragged (2,77) at offset 100 over a 300-slot cache, window 64, "
-         f"{hq}/{hkv}x{hd}", "mma", (2, 77, 177, hq, hkv, hd),
-         dict(window=64, q_offset=100, slots=300)),
         ("hd 128 (2,1024) 24/8x128, window 256 < sq", "wgmma",
          (2, 1024, 1024, 24, 8, 128), dict(window=256)),
     ]
@@ -2896,7 +2959,7 @@ def check_gemma_reduced():
     with torch.inference_mode():
         lg = gpu({"tokens": toks.cuda()}).cpu()
         lc = cpu({"tokens": toks})
-    assert k5.launches_by_kernel == {"wgmma": 0, "mma": n_layers}, \
+    assert k5.launches_by_kernel == _k5_counts(mma=n_layers), \
         k5.launches_by_kernel
     res["forward_max_abs_err"] = float((lg - lc).abs().max())
     assert res["forward_max_abs_err"] < 1e-3, res
@@ -2932,7 +2995,7 @@ def check_gemma_reduced():
                 for lm, dev in ((gpu, "cuda"), (cpu, "cpu"))]
         assert np.array_equal(outs[0]["tokens"], outs[1]["tokens"]), \
             (P, outs)
-        assert k5.launches_by_kernel == {"wgmma": 0, "mma": want}, \
+        assert k5.launches_by_kernel == _k5_counts(mma=want), \
             (P, k5.launches_by_kernel, want)
         tk = torch.from_numpy(outs[0]["tokens"])
         pg = _teacher_forced(gpu, tk.cuda(),
@@ -2965,14 +3028,17 @@ GEMMA_SERVE_CUTS = (
     "bf16 weights and caches are not cut.")
 
 
-def run_gemma_serve():
+def run_gemma_serve(out):
     """Phase 25: serving gemma3-12b at full width and depth: every layer of
-    the prefill and of each decode step takes the mma kernel (hd 256),
-    global caches and rings, before and after the wrap; phase 16's token
-    check."""
+    the prefill takes the wgmma kernel (hd 256) and every layer of each
+    decode step the mma kernel, global caches and rings, before and after
+    the wrap; phase 16's token check; the prefill and 4 decode steps under
+    ``torch.profiler`` as cell C's (``profile_gemma_serve_*.txt``)."""
     row, cmp, lm, prompts, toks = _serve_cell(
-        "gemma3-12b", GEMMA_SERVE, ("mma", "mma"), "gemma serve",
+        "gemma3-12b", GEMMA_SERVE, ("wgmma256", "mma"), "gemma serve",
         GEMMA_SERVE_CUTS)
+    cmp["profile"] = profile_serve(lm, prompts, toks, row, out, tag="F",
+                                   fname="profile_gemma_serve")
     del lm, toks, prompts
     gc.collect()
     torch.cuda.empty_cache()
@@ -3017,7 +3083,7 @@ def run_gemma_train(out):
     assert len(history) == STEPS
     assert all(math.isfinite(h["loss"]) for h in history), history
     assert k4n == 8 * STEPS, k4n
-    assert k5_by == {"wgmma": 0, "mma": cfg.n_layers * STEPS}, k5_by
+    assert k5_by == _k5_counts(wgmma256=cfg.n_layers * STEPS), k5_by
     log(f"[gemma train] {STEPS} steps in {total:.1f} s (model build "
         f"included); K4 {k4n} ({k4n / STEPS:g} a step), K5 {k5_by}")
     breakdown = step_breakdown(hook.prof, hook.rows, out, tag="gemma train",
@@ -3068,7 +3134,7 @@ def run_dense_configs():
     k4n, k5_by = k4.launches, dict(k5.launches_by_kernel)
     assert all(math.isfinite(h["loss"]) for h in hist), hist
     assert k4n == 8 * STEPS, k4n
-    assert k5_by == {"wgmma": 0, "mma": cfg.n_layers * STEPS}, k5_by
+    assert k5_by == _k5_counts(mma=cfg.n_layers * STEPS), k5_by
     res["lm-100m"] = dict(k4_launches=k4n, k5_launches_by_kernel=k5_by,
                           losses=[h["loss"] for h in hist],
                           wall_s=time.perf_counter() - t0)
@@ -3100,48 +3166,93 @@ def run_dense_configs():
     return res
 
 
+def _attn_flops(b, hq, hd, sq, skv, window, causal=True, q_offset=0):
+    """4·b·hq·hd times the keys the query rows attend to: the operations
+    of Q K^T and P V, counted from the causal edge and the window."""
+    pos = np.arange(sq, dtype=np.int64) + q_offset
+    hi = np.minimum(pos + 1, skv) if causal else np.full(sq, skv)
+    lo = np.maximum(0, pos - window + 1) if window > 0 else np.zeros(sq)
+    return 4 * b * hq * hd * int((hi - lo).sum())
+
+
 def time_k5_hd256(gen):
-    """Phase 23b: K5 at gemma3's shapes (the mma kernel): the prefill (8,
-    1024, 16/8, 256), causal with the window of 1024 (which cuts nothing
-    at 1024 queries), by CUDA events; decode over a full 1024-slot ring
-    (8 rows, not causal) by its device activity. Each beside its plain
-    version, its bound and ``scaled_dot_product_attention`` (k and v
-    expanded to 16 heads; the window needs no mask at these shapes) under
-    each backend that takes hd 256."""
+    """Phase 23b: K5 at gemma3's shapes. The prefill (8, 1024, 16/8, 256),
+    causal with the window of 1024 (which cuts nothing at 1024 queries),
+    and (2, 4096) with the window of 1024 (which cuts), on the wgmma
+    kernel and on the mma kernel (q copied off TMA's alignment: the same
+    values), each timed by CUDA events (the median of 3 rounds of 20
+    calls, in turns) and by its device time (``_device_ms``), beside
+    its plain version, its bound (counted from the window) and
+    ``scaled_dot_product_attention`` (k and v expanded to 16 heads) under
+    each backend that takes hd 256: ``is_causal`` where the window cuts
+    nothing, else a boolean band mask. The row's ``ms`` (and ``mma_ms``,
+    ``library_ms``) is the CUDA events' time, the yardstick of every
+    prefill row since phase 18a's; the device time stands beside it
+    (``device_ms``), since at ~0.15 ms a launch the wrapper's host
+    dispatch can set an event loop's pace. Decode over a full 1024-slot
+    ring (8 rows, not causal; the mma kernel) by its device time."""
     from repro_torch.kernels.flash_attn import flash_attn as k5
     from repro_torch.kernels.flash_attn.ops import flash_attention
     hq, hkv, hd, w = (GEMMA[k] for k in ("hq", "hkv", "hd", "window"))
     res = {}
-    b, sq = 8, 1024
-    q, k, v = _k5_inputs(b, sq, sq, hq, hkv, hd, torch.bfloat16, gen)
-    assert k5.plan(q, k, v) == "mma"
-    runs = {"mma": lambda: flash_attention(q, k, v, window=w),
-            "sdpa": _sdpa(q, k, v, True),
-            **{f"sdpa {n}": f for n, f in
-               _sdpa_backends(q, k, v, True).items()}}
-    ev = {key: [] for key in runs}
-    for r in range(3):
-        for key in (list(runs) if r % 2 == 0 else list(runs)[::-1]):
-            ev[key].append(_time(runs[key], 20))
-    med = {key: sorted(ts)[1] for key, ts in ev.items()}
-    n_ops = 4 * b * hq * hd * (sq * (sq + 1) // 2)
-    n_bytes = 2 * (2 * b * sq * hq * hd + 2 * b * sq * hkv * hd)
-    bound_ms, by = _bound(n_bytes, n_ops, BF16_FLOPS_PER_S)
-    res["prefill"] = dict(
-        shape=f"q ({b},{sq},{hq},{hd}), kv ({b},{sq},{hkv},{hd}) bf16, "
-              f"causal, window {w}",
-        kernel="mma", ms=med["mma"], rounds_ms=ev,
-        plain_ms=_time(lambda: _k5_plain(q, k, v, window=w), 2),
-        library_ms=med["sdpa"],
-        library_ms_by_backend={key[5:]: t for key, t in med.items()
-                               if key.startswith("sdpa ")},
-        bound_ms=bound_ms, bound_by=by,
-        tflops=n_ops / (med["mma"] * 1e-3) / 1e12,
-        timed_by="CUDA events, the median of 3 rounds of 20 calls, in turns")
-    del q, k, v, runs
-    torch.cuda.empty_cache()
+    for name, b, sq in (("prefill", 8, 1024), ("prefill (2, 4096)", 2, 4096)):
+        q, k, v = _k5_inputs(b, sq, sq, hq, hkv, hd, torch.bfloat16, gen)
+        q_off = _off_tma(q)
+        assert k5.plan(q, k, v) == "wgmma" and k5.plan(q_off, k, v) == "mma"
+        cuts = sq > w
+        if cuts:
+            pos = torch.arange(sq, device="cuda")
+            band = (pos[None] <= pos[:, None]) & (pos[None] > pos[:, None] - w)
+            g = hq // hkv
+            qt = q.transpose(1, 2)
+            kt, vt = (t.repeat_interleave(g, dim=2).transpose(1, 2)
+                      for t in (k, v))
+            f = torch.nn.functional.scaled_dot_product_attention
+            sdpa = {"sdpa": lambda: f(qt, kt, vt, attn_mask=band)}
+        else:
+            sdpa = {"sdpa": _sdpa(q, k, v, True),
+                    **{f"sdpa {n}": f for n, f in
+                       _sdpa_backends(q, k, v, True).items()}}
+        runs = {"wgmma": lambda: flash_attention(q, k, v, window=w),
+                "mma": lambda: flash_attention(q_off, k, v, window=w),
+                **sdpa}
+        ev = {key: [] for key in runs}
+        for r in range(3):
+            for key in (list(runs) if r % 2 == 0 else list(runs)[::-1]):
+                ev[key].append(_time(runs[key], 20))
+        med = {key: sorted(ts)[1] for key, ts in ev.items()}
+        dev = {key: _device_ms(fn, 20) for key, fn in runs.items()}
+        n_ops = _attn_flops(b, hq, hd, sq, sq, w)
+        n_bytes = 2 * (2 * b * sq * hq * hd + 2 * b * sq * hkv * hd)
+        bound_ms, by = _bound(n_bytes, n_ops, BF16_FLOPS_PER_S)
+        res[name] = dict(
+            shape=f"q ({b},{sq},{hq},{hd}), kv ({b},{sq},{hkv},{hd}) bf16, "
+                  f"causal, window {w}",
+            kernel="wgmma", ms=med["wgmma"], device_ms=dev["wgmma"],
+            rounds_ms=ev, mma_ms=med["mma"], mma_device_ms=dev["mma"],
+            plain_ms=_time(lambda: _k5_plain(q, k, v, window=w), 2),
+            library_ms=med["sdpa"], library_device_ms=dev["sdpa"],
+            library_ms_by_backend={
+                key[5:]: t for key, t in med.items()
+                if key.startswith("sdpa ")} or None,
+            library_device_ms_by_backend={
+                key[5:]: t for key, t in dev.items()
+                if key.startswith("sdpa ")} or None,
+            library_call=("is_causal" if not cuts else
+                          "a boolean band mask (the window cuts)"),
+            bound_ms=bound_ms, bound_by=by, flop=n_ops,
+            tflops=n_ops / (med["wgmma"] * 1e-3) / 1e12,
+            share_of_bound=bound_ms / med["wgmma"],
+            device_share_of_bound=bound_ms / dev["wgmma"],
+            mma_tflops=n_ops / (med["mma"] * 1e-3) / 1e12,
+            timed_by="ms: CUDA events, the median of 3 rounds of 20 calls, "
+                     "in turns; device_ms: " + DEVICE_TIMED)
+        del q, k, v, q_off, runs, sdpa
+        torch.cuda.empty_cache()
+    b = 8
     q, k, v = _k5_inputs(b, 1, w, hq, hkv, hd, torch.bfloat16, gen)
     kw = dict(causal=False)
+    assert k5.plan(q, k, v) == "mma"
     ms = _device_ms(lambda: flash_attention(q, k, v, **kw), 50)
     lib = {"sdpa": _sdpa(q, k, v, False),
            **{f"sdpa {n}": f for n, f in
@@ -3161,16 +3272,25 @@ def time_k5_hd256(gen):
         bound_ms=bound_ms, bound_by=by,
         tb_per_s=n_bytes / (ms * 1e-3) / 1e12,
         event_loop_ms=_time(lambda: flash_attention(q, k, v, **kw), 100),
-        timed_by="device activity (torch.profiler)")
+        timed_by=DEVICE_TIMED)
     del q, k, v, lib
     torch.cuda.empty_cache()
     for name, r in res.items():
         backends = {n: round(t, 4)
-                    for n, t in r["library_ms_by_backend"].items()}
+                    for n, t in (r["library_ms_by_backend"] or {}).items()}
+        extra = ""
+        if "device_ms" in r:
+            extra = (f" ({r['tflops']:.1f} TFLOP/s, {r['share_of_bound']:.3f}"
+                     f" of the bound; by device time "
+                     f"{r['device_ms']:.4f}); the mma kernel on the same "
+                     f"values {r['mma_ms']:.4f} (device "
+                     f"{r['mma_device_ms']:.4f}); SDPA by device time "
+                     f"{r['library_device_ms']:.4f} (by backend "
+                     f"{r['library_device_ms_by_backend']})")
         log(f"[timing hd256] K5 {name} {r['shape']}: {r['kernel']} kernel "
-            f"{r['ms']:.4f} ms/launch, plain {r['plain_ms']:.4f} ms, SDPA "
-            f"{r['library_ms']:.4f} ms (by backend {backends}), bound "
-            f"{r['bound_ms']:.4f} ms ({r['bound_by']}); timed by "
+            f"{r['ms']:.4f} ms/launch{extra}, plain {r['plain_ms']:.4f} ms, "
+            f"SDPA {r['library_ms']:.4f} ms (by backend {backends}), bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}); row timed by "
             f"{r['timed_by']}")
     return res
 
@@ -3281,11 +3401,11 @@ def main():
     k5_256, ptxas_256 = phase("23 K5 hd 256", check_k5_hd256, gen)
     k5_256_t = phase("23b K5 hd 256 timing", time_k5_hd256, gen)
     gemma_tiny = phase("24 gemma3 reduced", check_gemma_reduced)
-    gemma_serve, gemma_cmp = phase("25 gemma3 serve", run_gemma_serve)
+    gemma_serve, gemma_cmp = phase("25 gemma3 serve", run_gemma_serve, out)
     k1_gemma, gemma_score = phase(
         "26 gemma3 score", _score_run, "gemma3-12b", "gemma score", 48,
-        "mma", "11.765 B parameters by counting (23.5 GB in bf16); cuts from "
-        "prod: seq_len 4096 -> 1024, global_batch 256 -> 8; width, depth "
+        "wgmma256", "11.765 B parameters by counting (23.5 GB in bf16); cuts "
+        "from prod: seq_len 4096 -> 1024, global_batch 256 -> 8; width, depth "
         "(48 layers: 40 local, 8 global) and vocab (262144) are not cut")
     gemma_train = phase("27 gemma3 train", run_gemma_train, out)
     dense = phase("28 dense configs", run_dense_configs)
@@ -3311,16 +3431,18 @@ def main():
                   "yi-34b score": dense["yi-34b"]["k5_launches_by_kernel"]}
 
     def k5_paths(kernel):
-        return {path: by[kernel] for path, by in k5_by_path.items()}
+        return {path: by[kernel] for path, by in k5_by_path.items()
+                if by[kernel]}
 
     def k5_worst(kernel):
         return max(c["max_abs_err"] for c in k5_cases.values()
                    if c["kernel"] == kernel)
+    g3 = k5_256_t["prefill"]
     ps_key = f"pool_select ({POOL[0]}, {POOL[1]}) k {BATCH}"
     ps_cell_e = {k: ps_t[ps_key][k]
                  for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
     ps_common = dict(
-        timed_by="device activity (torch.profiler)",
+        timed_by=DEVICE_TIMED,
         timed_at=f"cell E's pool {ps_key}: one launch computes K2, K3 and "
                  "the selection; prod's pool, select_pool, the op and the "
                  "launch floor in by_shape",
@@ -3362,10 +3484,31 @@ def main():
                        tflops=pre["tflops"], build=wgmma_build,
                        timed_at="cell C prefill; (8, 1024) and (12, 1024) "
                                 "in by_shape"),
+                  dict(name="flash_fwd_wgmma256", route="cuda",
+                       source=csrc.format("flash_attn",
+                                          "flash_attn_fwd_wgmma256.cu"),
+                       serves="bf16, hd 256, sq >= 64, TMA-aligned "
+                              "(gemma3's prefill, scoring, pool scoring)",
+                       launches=gemma_serve["k5_launches_by_kernel"][
+                           "wgmma256"],
+                       launches_by_path=k5_paths("wgmma256"),
+                       max_abs_err=k5_worst("wgmma256"),
+                       ms=g3["ms"], device_ms=g3["device_ms"],
+                       plain_ms=g3["plain_ms"], bound_ms=g3["bound_ms"],
+                       bound_by=g3["bound_by"],
+                       library_ms=g3["library_ms"],
+                       library_ms_by_backend=g3["library_ms_by_backend"],
+                       tflops=g3["tflops"],
+                       share_of_bound=g3["share_of_bound"],
+                       mma_ms=g3["mma_ms"], ptxas=ptxas_256,
+                       timed_by=g3["timed_by"],
+                       timed_at="gemma3 prefill (8, 1024); (2, 4096) with "
+                                "the window in by_shape_hd256 of flash_mma"),
                   dict(name="flash_mma", route="cuda",
                        source=csrc.format("flash_attn", "flash_attn_fwd.cu"),
-                       serves="decode, f32, other head dims incl. 256, "
-                              "windowed rings",
+                       serves="decode (hd 256: gemma3's ring decode), f32, "
+                              "other head dims, unaligned views, windowed "
+                              "rings",
                        launches=cell_c["k5_launches_by_kernel"]["mma"],
                        launches_by_path=k5_paths("mma"),
                        max_abs_err=k5_worst("mma"), ms=dec["ms"],
@@ -3374,7 +3517,7 @@ def main():
                        library_ms=dec["library_ms"],
                        library_ms_by_backend=None,
                        by_shape_hd256=k5_256_t, ptxas_hd256=ptxas_256,
-                       timed_at="cell C decode (device activity); on the "
+                       timed_at="cell C decode (device time); on the "
                                 "wgmma shapes as mma_ms in by_shape; "
                                 "gemma3's prefill and ring decode at hd 256 "
                                 "in by_shape_hd256")]),

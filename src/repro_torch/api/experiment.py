@@ -122,6 +122,7 @@ class Experiment:
         self.sampler.bind_engine(self.engine)
         self.monitor = StragglerMonitor(run_cfg.step_deadline_factor)
         self.default_hooks = list(hooks)
+        self.last_state = None       # the train state of the last fit()
         # presample runs the paper's Algorithm 1 inside the step; the
         # score-memory and host/fused presample schemes hand the step b
         # host-chosen rows + the τ flag
@@ -237,7 +238,25 @@ class Experiment:
             # the flush last: its snapshot holds what every hook recorded
             from repro_torch.obs.hook import TelemetryHook
             hs.append(TelemetryHook(self.run.obs))
-        return TrainLoop(self, hs).run(steps)
+        state, history = TrainLoop(self, hs).run(steps)
+        self.last_state = state
+        return state, history
+
+    def score(self, params, batch):
+        """Forward-only per-sample (loss, score) through the engine;
+        blocking, numpy."""
+        return self.engine.score_host(params, batch)
+
+    def serve(self, params=None, **kw):
+        """Prefill + batched greedy decode with this experiment's model
+        (``repro_torch.api.serving.serve``) on its device; ``params``
+        defaults to the last trained params. Sharded serving (``mesh=``)
+        is not ported yet."""
+        from repro_torch.api.serving import serve as _serve
+        if params is None and self.last_state is not None:
+            params = self.last_state["params"]
+        kw.setdefault("device", self.device)
+        return _serve(self.run.model, params=params, **kw)
 
 
 def train(cfg="lm-tiny", *, preset=None, overrides=None, source=None,

@@ -21,11 +21,12 @@
 // would copy the KV cache g times in every layer at every step. Decode
 // (sq = 1) packs its g query heads into one block.
 //
-// The wgmma kernel (flash_attn_fwd_wgmma.cu) takes bf16 prefill and
-// scoring at hd = 128 (the wrapper's kernel_for rule: at least 64 query
-// rows, TMA-aligned q, k, v); this kernel serves decode (sq = 1, the kv
-// range split), f32 (lm-tiny), the other bf16 head dims and calls not
-// aligned for TMA; every bf16 call at hd 256 (gemma3) comes here.
+// The wgmma kernels (flash_attn_fwd_wgmma.cu, flash_attn_fwd_wgmma256.cu)
+// take bf16 prefill and scoring at hd = 128 and 256 (the wrapper's
+// kernel_for rule: at least 64 query rows, TMA-aligned q, k, v); this
+// kernel serves decode (sq = 1, the kv range split; gemma3's ring decode
+// at hd 256), f32 (lm-tiny), the other bf16 head dims and calls not
+// aligned for TMA.
 //
 // Bound: at decode (sq = 1) reading the cache once is the bound; a
 // prefill (4*b*hq*hd*sum_i(i+1) flop) is compute-bound.

@@ -4,8 +4,10 @@
 //
 // Replaces the TPU kernel flash_attention_pallas
 // (src/repro/kernels/flash_attn/flash_attn.py:66, body _kernel :25-63)
-// for bf16 calls with hd = 128 and at least 64 query rows; the mma.sync
-// kernel of flash_attn_fwd.cu keeps decode, f32 and the other head dims.
+// for bf16 calls with hd = 128 and at least 64 query rows; its sibling
+// flash_attn_fwd_wgmma256.cu takes hd = 256, and the mma.sync kernel of
+// flash_attn_fwd.cu keeps decode, f32 and the other head dims. The helpers
+// both share are in flash_attn_wgmma.cuh.
 // For q (b, sq, hq, hd) and k, v (b, skv, hkv, hd), read in place through
 // their strides, query head h (kv head h / g), query position
 // qpos = q_offset + i and key position j:
@@ -73,15 +75,10 @@
 //     them; rows past sq are clipped by the map. The Q buffer goes back to
 //     the producer once the store has read it.
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_attn_wgmma.cuh"
 
 namespace {
 
-constexpr float kNeg = -1e30f;
-constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kHd = 128;
 constexpr int kBlockM = 128;               // query rows per work tile
 constexpr int kBlockN = 128;               // keys per kv tile
@@ -109,94 +106,8 @@ struct Params {
 };
 
 // ---------------------------------------------------------------------------
-// PTX wrappers: mbarrier, TMA, wgmma
+// wgmma m64n128k16
 // ---------------------------------------------------------------------------
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try(uint32_t bar, uint32_t parity) {
-  uint32_t ok;
-  asm volatile(
-      "{\n"
-      ".reg .pred P1;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%1], %2;\n"
-      "selp.b32 %0, 1, 0, P1;\n"
-      "}\n"
-      : "=r"(ok)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return ok != 0;
-}
-
-// returns once the phase of parity ``parity`` has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  while (!mbar_try(bar, parity)) {
-  }
-}
-
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1, int c2,
-                                         int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2), "r"(c3)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src,
-                                          int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group "
-      "[%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
-      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// K-major or N-major operand in 128-byte-swizzled shared memory
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)lbo << 16) |
-         ((uint64_t)sbo << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// keeps the compiler from moving register reads or writes of an
-// accumulator across the asynchronous wgmma that owns it
-__device__ __forceinline__ void fence_regs(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
 #define K5_D_REGS                                                          \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
@@ -248,27 +159,6 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);  // .x: low 16 bits
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
 // ---------------------------------------------------------------------------
 // the work tiles and their kv ranges
 // ---------------------------------------------------------------------------
@@ -295,15 +185,6 @@ __device__ __forceinline__ Tile tile_at(const Params& p, int t) {
   c.t_begin = kv_begin / kBlockN;
   c.t_end = (kv_end + kBlockN - 1) / kBlockN;
   return c;
-}
-
-// The block's k-th work tile: rounds of gridDim.x consecutive tiles, the
-// block's place in a round mirrored every other round (a snake), so a
-// block that took a heavier tile in one round takes a lighter one in the
-// next. Static: every launch gives each block the same tiles.
-__device__ __forceinline__ int walk(int k) {
-  const int g = gridDim.x, i = blockIdx.x;
-  return k * g + ((k & 1) ? g - 1 - i : i);
 }
 
 // ---------------------------------------------------------------------------
@@ -654,46 +535,6 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (w == 0) turn_wait();                 // group 1's last hand-over
     if (tid == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
   }
-}
-
-// ---------------------------------------------------------------------------
-// host: tensor maps and the launch
-// ---------------------------------------------------------------------------
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_fn() {
-  static EncodeTiled fn = [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f,
-                                cudaEnableDefault, &q) != cudaSuccess ||
-        q != cudaDriverEntryPointSuccess)
-      f = nullptr;
-    return reinterpret_cast<EncodeTiled>(f);
-  }();
-  return fn;
-}
-
-// geo: dims (hd, s, heads, b) then byte strides of s, heads and b
-int make_map(CUtensorMap* map, const void* ptr, const unsigned long long* geo,
-             int box_rows) {
-  EncodeTiled enc = encode_fn();
-  if (!enc) return 999;
-  cuuint64_t dims[4] = {geo[0], geo[1], geo[2], geo[3]};
-  cuuint64_t strides[3] = {geo[4], geo[5], geo[6]};
-  cuuint32_t box[4] = {64, (cuuint32_t)box_rows, 1, 1};
-  cuuint32_t elem[4] = {1, 1, 1, 1};
-  CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                   const_cast<void*>(ptr), dims, strides, box, elem,
-                   CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : 1000 + (int)r;
 }
 
 }  // namespace

@@ -4,14 +4,16 @@ Two kernels replace the TPU kernel ``flash_attention_pallas`` of
 ``repro/kernels/flash_attn/flash_attn.py`` (and the fold of its wrapper),
 registered together as ``torch.ops.repro_torch.flash_attention``:
 
-* ``wgmma`` (``csrc/flash_attn_fwd_wgmma.cu``, library ``LIB_WGMMA``):
-  prefill and scoring, a warp-specialised forward on ``wgmma`` and TMA
-  with a persistent grid, for bf16 with hd = 128, at least
-  ``WGMMA_MIN_ROWS`` query rows and TMA-aligned q, k and v;
+* ``wgmma`` (library ``LIB_WGMMA``): prefill and scoring, a
+  warp-specialised forward on ``wgmma`` and TMA with a persistent grid,
+  for bf16 with hd = 128 (``csrc/flash_attn_fwd_wgmma.cu``) or hd = 256
+  (gemma3; ``csrc/flash_attn_fwd_wgmma256.cu``, 64-key tiles, Q in a ring
+  of 64-row halves), at least ``WGMMA_MIN_ROWS`` query rows and
+  TMA-aligned q, k and v;
 * ``mma`` (``csrc/flash_attn_fwd.cu``, library ``LIB``): everything else
-  the port calls, decode (one query row, the kv range split over blocks),
-  f32 and the other bf16 head dims (16, 32, 64, and 256 for gemma3, whose
-  block stages Q in shared memory), on ``mma.sync``.
+  the port calls, decode (one query row, the kv range split over blocks;
+  gemma3's ring decode at hd 256, whose block stages Q in shared memory),
+  f32 and the other bf16 head dims (16, 32, 64), on ``mma.sync``.
 
 ``kernel_for`` is the dispatch rule, a pure function of dtype, shape and
 alignment; ``plan`` checks a call and names its kernel. Each library is
@@ -22,8 +24,9 @@ one kernel to the other, nor to the plain version (``ops.flash_attention``
 picks that only for CPU tensors or ``interpret=True``).
 
 ``launches`` counts the wrapper's launches and ``launches_by_kernel`` each
-kernel's; ``chip_smoke.py`` zeroes them around a main path to show which
-kernel the path went through.
+kernel's where it launches: ``"wgmma"`` (hd 128), ``"wgmma256"`` (hd 256)
+and ``"mma"``; ``chip_smoke.py`` zeroes them around a main path to show
+which kernel the path went through.
 """
 import ctypes
 import functools
@@ -34,16 +37,19 @@ from torch import Tensor
 
 LIB = "flash_attn_fwd"                  # the mma.sync kernel's library
 SOURCES = (Path(__file__).with_name("csrc") / "flash_attn_fwd.cu",)
-LIB_WGMMA = "flash_attn_fwd_wgmma"      # the wgmma kernel's library
-SOURCES_WGMMA = (Path(__file__).with_name("csrc") / "flash_attn_fwd_wgmma.cu",)
+LIB_WGMMA = "flash_attn_fwd_wgmma"      # the wgmma kernels' library
+SOURCES_WGMMA = tuple(Path(__file__).with_name("csrc") / f for f in (
+    "flash_attn_fwd_wgmma.cu", "flash_attn_fwd_wgmma256.cu",
+    "flash_attn_wgmma.cuh"))
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _BF16_HD = (16, 32, 64, 128, 256)
 _ROWS = 64                              # packed query rows per block
 _MAX_SPLIT = 32
 WGMMA_MIN_ROWS = 64                     # query rows: half a work tile
+WGMMA_HD = (128, 256)                   # head dims of the wgmma kernels
 
 launches = 0
-launches_by_kernel = {"wgmma": 0, "mma": 0}
+launches_by_kernel = {"wgmma": 0, "wgmma256": 0, "mma": 0}
 
 
 def _lib():
@@ -56,9 +62,12 @@ def _lib():
     return fn
 
 
-def _lib_wgmma():
+def _lib_wgmma(hd: int):
+    """The wgmma kernel's launch entry for head dim ``hd`` (128 or 256)."""
     from repro_torch.kernels import build
-    fn = build.load(LIB_WGMMA, SOURCES_WGMMA).flash_fwd_wgmma_launch
+    lib = build.load(LIB_WGMMA, SOURCES_WGMMA)
+    fn = lib.flash_fwd_wgmma_launch if hd == 128 \
+        else lib.flash_fwd_wgmma256_launch
     p, i = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [p, p, p, p, ctypes.POINTER(ctypes.c_ulonglong), i, i, i,
                    i, i, i, i, i, ctypes.c_float, p]
@@ -91,13 +100,14 @@ def _tma_ok(t: Tensor) -> bool:
 
 def kernel_for(dtype, hd: int, sq: int, aligned: bool,
                scale: float = 1.0) -> str:
-    """The dispatch rule: ``"wgmma"`` for bf16 with hd = 128, at least
+    """The dispatch rule: ``"wgmma"`` for bf16 with hd in ``WGMMA_HD``
+    (128, and 256 for gemma3), at least
     ``WGMMA_MIN_ROWS`` query rows (prefill and scoring; below that the
     rows of one head fill less than half a 128-row work tile), TMA-aligned
     q, k and v (``aligned``) and a positive softmax scale (the kernel takes
     its row max on the unscaled scores); else ``"mma"`` (decode, f32,
-    other head dims, any other scale)."""
-    if (dtype == torch.bfloat16 and hd == 128 and sq >= WGMMA_MIN_ROWS
+    other head dims, unaligned views, any other scale)."""
+    if (dtype == torch.bfloat16 and hd in WGMMA_HD and sq >= WGMMA_MIN_ROWS
             and aligned and scale > 0):
         return "wgmma"
     return "mma"
@@ -203,7 +213,7 @@ def flash_attention_cuda(q: Tensor, k: Tensor, v: Tensor, causal: bool,
             *(x for t in (q, k, v, o) for x in tma_geometry(t)))
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            err = _lib_wgmma()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            err = _lib_wgmma(hd)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                o.data_ptr(), geo, b, sq, skv, hq, hkv,
                                int(causal), int(window), int(q_offset),
                                float(scale), stream)
@@ -211,7 +221,7 @@ def flash_attention_cuda(q: Tensor, k: Tensor, v: Tensor, causal: bool,
             raise RuntimeError(f"flash_attention (wgmma) launch failed: "
                                f"error {err}")
         launches += 1
-        launches_by_kernel["wgmma"] += 1
+        launches_by_kernel["wgmma" if hd == 128 else "wgmma256"] += 1
         return o
     rows = sq * (hq // hkv)
     nsplit = _split(rows, b * hkv, skv, _tile(q.dtype, hd),

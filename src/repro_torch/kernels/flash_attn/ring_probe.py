@@ -29,6 +29,10 @@ ROUNDS = 7
 def _variant(kd, vd, argtypes):
     """Build the kernel with rings of kd and vd slots; its launch entry."""
     text = k5.SOURCES_WGMMA[0].read_text()
+    header = k5.SOURCES_WGMMA[-1]       # the helpers, beside the sources
+    include = f'#include "{header.name}"'
+    assert text.count(include) == 1, include
+    text = text.replace(include, f'#include "{header}"')
     for name, old, new in (("kKStages", 3, kd), ("kVStages", 2, vd)):
         line = f"constexpr int {name} = {old};"
         assert text.count(line) == 1, line
@@ -36,7 +40,7 @@ def _variant(kd, vd, argtypes):
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     src = build.BUILD_DIR / f"flash_attn_fwd_wgmma_k{kd}v{vd}.cu"
     src.write_text(text)
-    so = build.build(src.stem, (src,))
+    so = build.build(src.stem, (src, header))
     log = (build.BUILD_DIR / f"{src.stem}.log").read_text()
     fn = ctypes.CDLL(str(so)).flash_fwd_wgmma_launch
     fn.argtypes = argtypes

@@ -79,6 +79,11 @@ class ScoreStore:
         self._c_hits = obs.counter("store.gather_cache.hits")
         self._c_misses = obs.counter("store.gather_cache.misses")
         self._c_inval = obs.counter("store.invalidations")
+        # the per-id staleness clock (update ticks since an id was last
+        # rescored), allocated on the first update made while obs is on
+        self._h_staleness = obs.histogram("store.staleness")
+        self._tick = 0
+        self._last_tick = None
 
     # -- id mapping (delegated to the ownership policy) -----------------------
     def owned(self, gids: np.ndarray) -> np.ndarray:
@@ -117,6 +122,7 @@ class ScoreStore:
         slots = self.slot(gids)
         self._n_seen += int((self.seen[np.unique(slots)] == 0).sum())
         old_seen = self.seen[slots].astype(bool)
+        self._note_staleness(slots, old_seen)
         merged = np.where(old_seen,
                           self.ema * self.scores[slots] + (1 - self.ema) * scores,
                           scores)
@@ -124,6 +130,18 @@ class ScoreStore:
         self.seen[slots] = 1
         self.updates += gids.size
         return int(gids.size)
+
+    def _note_staleness(self, slots, old_seen) -> None:
+        """Observe, for every revisited id of this update, the update ticks
+        since it was last rescored. The clock is not checkpointed."""
+        if not obs.enabled():
+            return
+        self._tick += 1
+        if self._last_tick is None:
+            self._last_tick = np.zeros((self.n_local,), np.int64)
+        for age in self._tick - self._last_tick[slots[old_seen]]:
+            self._h_staleness.observe(float(age))
+        self._last_tick[slots] = self._tick
 
     def decay(self, mean=None) -> None:
         """Staleness decay: pull seen scores toward the mean (epoch tick).
@@ -150,7 +168,8 @@ class ScoreStore:
 
     def global_scores(self, use_cache: bool = False) -> np.ndarray:
         """The GLOBAL score vector (length n, ``-1`` where never seen),
-        reassembled from every host's strided shard.
+        reassembled from every host's strided shard (this host's shard at
+        one host, with no gather).
 
         ``use_cache=True`` reuses the last gathered vector between writes;
         every ``update``/``decay``/restore bumps ``version``, so a stale
@@ -162,9 +181,13 @@ class ScoreStore:
                 self._c_hits.inc()
                 return self._gcache
             self._c_misses.inc()
-        out = np.asarray(gather_host_scores(
-            self.sentinel_scores(), host_id=self.host_id,
-            n_hosts=self.n_hosts, n_global=self.n), np.float32)
+        local = self.sentinel_scores()
+        if self.n_hosts == 1:
+            out = local
+        else:
+            out = np.asarray(gather_host_scores(
+                local, host_id=self.host_id, n_hosts=self.n_hosts,
+                n_global=self.n), np.float32)
         if use_cache:
             self._gcache, self._gcache_version = out, self.version
         return out

@@ -143,7 +143,7 @@ class ScoreEngine:
         from the host."""
         obs.counter("engine.row_gathers").inc()
         with obs.span("engine.take_rows"):
-            idx = np.ascontiguousarray(np.asarray(idx, np.int64))
+            idx = np.ascontiguousarray(np.asarray(idx, np.int32))
             h2d = idx.nbytes + (0 if weights is None
                                 else np.asarray(weights).nbytes)
             obs.counter("engine.h2d_bytes").inc(h2d)

@@ -219,8 +219,11 @@ def test_forward_only_route_is_chosen_on_cuda(cuda, monkeypatch):
     ("bfloat16", 128, 333, False, "mma"),
     ("bfloat16", 64, 1024, True, "mma"),      # other head dims
     ("bfloat16", 32, 64, True, "mma"),
-    ("bfloat16", 256, 1024, True, "mma"),     # gemma3: hd 256
-    ("bfloat16", 256, 1, True, "mma"),
+    ("bfloat16", 256, 1024, True, "wgmma"),   # gemma3's prefill: hd 256
+    ("bfloat16", 256, 64, True, "wgmma"),
+    ("bfloat16", 256, 63, True, "mma"),       # under WGMMA_MIN_ROWS
+    ("bfloat16", 256, 1024, False, "mma"),    # not TMA-aligned
+    ("bfloat16", 256, 1, True, "mma"),        # gemma3's ring decode
     ("float32", 128, 1024, True, "mma"),      # f32
     ("float32", 16, 64, True, "mma"),         # lm-tiny
 ])
@@ -262,11 +265,14 @@ def test_plan_names_the_kernel_from_the_tensors():
     qs = torch.zeros(2, 128, 6, 132, dtype=torch.bfloat16)[..., :128]
     assert plan(qs, k, v) == "mma"
     assert plan(q.float(), k.float(), v.float()) == "mma"
-    # gemma3's head dim: the mma kernel, prefill and decode
+    # gemma3's head dim: the wgmma kernel for the prefill over a prefix
+    # view, the mma kernel for the decode and for a q off TMA's alignment
     q256 = torch.zeros(2, 128, 16, 256, dtype=torch.bfloat16)
     ring = torch.zeros(2, 1024, 8, 256, dtype=torch.bfloat16)
-    assert plan(q256, ring[:, :128], ring[:, :128]) == "mma"
+    assert plan(q256, ring[:, :128], ring[:, :128]) == "wgmma"
     assert plan(q256[:, :1], ring, ring) == "mma"
+    assert plan(_view_at(q256.shape, 2), ring[:, :128], ring[:, :128]) \
+        == "mma"
 
 
 @pytest.mark.parametrize("case", ["bf16 hd 80", "f32 hd 256",
@@ -318,6 +324,13 @@ def test_tma_geometry():
     odd = torch.zeros(1, 64, 1, 128, dtype=torch.bfloat16).as_strided(
         (1, 64, 1, 128), (7, 128, 3, 1))
     assert tma_geometry(odd) == (128, 64, 1, 1, 256, 64 * 256, 64 * 256)
+    # hd 256 (gemma3): the prefix view of a 1088-slot cache, 8 kv heads
+    cache = torch.zeros(8, 1088, 8, 256, dtype=torch.bfloat16)
+    view = cache[:, :1024]
+    assert tma_geometry(view) == (
+        256, 1024, 8, 8, 8 * 512, 512, 1088 * 8 * 512)
+    assert plan(torch.zeros(8, 1024, 16, 256, dtype=torch.bfloat16), view,
+                view) == "wgmma"
 
 
 WGMMA_CASES = [
@@ -440,27 +453,101 @@ HD256_CASES = [
 ]
 
 
+def _off_tma(t):
+    """A copy of ``t`` whose base sits 4 bytes off a 16-byte boundary: TMA
+    refuses it, so the dispatch rule sends a prefill to the mma kernel."""
+    buf = torch.empty(t.numel() + 2, dtype=t.dtype, device=t.device)
+    return buf[2:].view(t.shape).copy_(t)
+
+
+def _hd256_check(q, k, v, kernel, **kw):
+    """K5 at hd 256 on the card against its plain version in f32 on the
+    same inputs (two batch rows at a time): within 3e-2 of every output
+    and 1.5e-2 of each row's largest |output|, ``kernel``'s count alone
+    moving; returns the output."""
+    from repro_torch.kernels.flash_attn import flash_attn as k5
+    before = dict(k5.launches_by_kernel)
+    got = flash_attention(q, k, v, **kw)
+    assert k5.launches_by_kernel == dict(before,
+                                         **{kernel: before[kernel] + 1})
+    want = torch.cat([flash_attention(q[i:i + 2].float(), k[i:i + 2].float(),
+                                      v[i:i + 2].float(), interpret=True,
+                                      **kw) for i in range(0, q.shape[0], 2)])
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want, rtol=3e-2, atol=3e-2)
+    assert _row_rel_err(got, want) <= ROW_REL["bfloat16"]
+    return got
+
+
+def _hd256_inputs(cuda, b, sq, skv, slots, q_scale, hq=16, hkv=8):
+    q, k, v = (torch.from_numpy(t).to(cuda, torch.bfloat16) for t in
+               _qkv(b, sq, max(skv, slots), hq, hkv, 256, seed=sq + skv))
+    q = (q.float() * q_scale).to(torch.bfloat16)
+    return q, k[:, :skv], v[:, :skv]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,sq,skv,window,q_offset,slots,causal,q_scale",
                          HD256_CASES)
 def test_hd256_kernel_matches_plain_on_gpu(cuda, b, sq, skv, window,
                                            q_offset, slots, causal, q_scale):
-    """K5 at hd 256 in bf16 (the mma kernel, Q staged in shared memory)
-    against its plain version in f32 on the same inputs, at the shapes of
-    ``chip_smoke.py``'s phase 23: within 3e-2 of every output and 1.5e-2
-    of each row's largest |output|, the mma count alone moving."""
+    """K5 at hd 256 in bf16 against its plain version in f32 on the same
+    inputs, at the shapes of ``chip_smoke.py``'s phase 23, on the kernel
+    the dispatch rule names (wgmma for the prefill shapes, mma for the
+    decode); a prefill also on the mma kernel (Q staged in shared memory)
+    through a copy of q off TMA's alignment."""
     from repro_torch.kernels.flash_attn import flash_attn as k5
-    q, k, v = (torch.from_numpy(t).to(cuda, torch.bfloat16) for t in
-               _qkv(b, sq, max(skv, slots), 16, 8, 256, seed=sq + skv))
-    q = (q.float() * q_scale).to(torch.bfloat16)
-    k, v = k[:, :skv], v[:, :skv]
+    q, k, v = _hd256_inputs(cuda, b, sq, skv, slots, q_scale)
     kw = dict(causal=causal, window=window, q_offset=q_offset)
-    before = dict(k5.launches_by_kernel)
-    got = flash_attention(q, k, v, **kw)
-    assert k5.launches_by_kernel == dict(before, mma=before["mma"] + 1)
-    want = torch.cat([flash_attention(q[i:i + 2].float(), k[i:i + 2].float(),
-                                      v[i:i + 2].float(), interpret=True,
-                                      **kw) for i in range(0, b, 2)])
-    torch.cuda.synchronize()
-    torch.testing.assert_close(got.float(), want, rtol=3e-2, atol=3e-2)
-    assert _row_rel_err(got, want) <= ROW_REL["bfloat16"]
+    kernel = k5.kernel_for(q.dtype, 256, sq, True)     # the counter's key
+    _hd256_check(q, k, v, "wgmma256" if kernel == "wgmma" else kernel, **kw)
+    if sq > 1:
+        _hd256_check(_off_tma(q), k, v, "mma", **kw)
+
+
+WGMMA256_CASES = [
+    # b, sq, skv, hq, hkv, window, q_offset, cache slots, softmax scale
+    # (None: hd^-0.5), causal
+    (1, 64, 64, 2, 1, 0, 0, 0, None, True),         # the rule's least sq
+    (2, 150, 150, 16, 8, 0, 0, 0, None, True),      # group 1 of the 2nd
+                                                    # tile wholly past sq
+    (2, 77, 177, 16, 8, 64, 100, 300, None, True),  # ragged, offset,
+                                                    # window, prefix views
+    (8, 1024, 1024, 16, 8, 1024, 0, 1088, None, True),  # gemma3's prefill
+                                                        # over a 1088-slot
+                                                        # cache's prefix
+    (2, 4096, 4096, 16, 8, 1024, 0, 0, None, True),  # the window cuts (the
+                                                     # walk row block first)
+    (12, 200, 456, 16, 8, 64, 256, 512, 0.2, True),  # batch 12, blocks walk
+                                                     # two tiles; rows whose
+                                                     # first kv tile is
+                                                     # wholly masked
+    (2, 300, 300, 16, 8, 0, 0, 0, None, False),     # not causal
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q_scale", [1.0, 6.0])
+@pytest.mark.parametrize(
+    "b,sq,skv,hq,hkv,window,q_offset,slots,scale,causal", WGMMA256_CASES)
+def test_wgmma256_kernel_matches_plain_on_gpu(cuda, q_scale, b, sq, skv, hq,
+                                              hkv, window, q_offset, slots,
+                                              scale, causal):
+    """The wgmma kernel at hd 256 (``flash_attn_fwd_wgmma256.cu``) against
+    the plain version on the card: windows, offsets, prefix views of a
+    cache, peaked q, batch 12, a softmax scale of 0.2, not causal; the
+    wgmma256 count alone moving."""
+    q, k, v = _hd256_inputs(cuda, b, sq, skv, slots, q_scale, hq, hkv)
+    _hd256_check(q, k, v, "wgmma256", window=window, q_offset=q_offset,
+                 scale=scale, causal=causal)
+
+
+@pytest.mark.gpu
+def test_wgmma256_two_launches_give_the_same_bits(cuda):
+    """No atomics and a static walk: gemma3's prefill on the same inputs
+    gives the same bits, launch after launch."""
+    q, k, v = _hd256_inputs(cuda, 8, 1024, 1024, 0, 6.0)
+    first = flash_attention(q, k, v, window=1024)
+    for _ in range(2):
+        assert torch.equal(flash_attention(q, k, v, window=1024), first)

@@ -9,6 +9,11 @@
   ``from_json(to_json(run))`` round trip.
 * The JSONL, TensorBoard and console sinks: the same bytes (lines) as the
   reference's for the same records, the wall clock fixed.
+* ``obs.snapshot()`` of both packages over the same lm-tiny ``smoke``
+  runs (the fused presample with conservative pruning, and
+  ``selective``): the store's counters and ``store.staleness``
+  histogram, the collectives' counters (none for a one-host gather) and
+  ``engine.h2d_bytes`` (the winners' indices as int32) are equal.
 * A torch leg of ``tests/obs_schema_check.py``: every metric name the
   port's JSONL records carry is in ``repro/obs/schema.py``, with the kind
   the schema declares, and each layer's instruments are live.
@@ -101,6 +106,60 @@ def test_variance_gain_hook_matches_reference(tmp_path):
     assert snap["health.ess"] == last["ess"]
     assert snap["health.is_active"] == 1.0
     assert snap["health.ess_frac"] == pytest.approx(last["ess"] / 4)
+
+
+SNAP_LEGS = {
+    "fused": {"sampler.scheme": "presample", "imp.presample_impl": "fused",
+              "imp.score_prune": "conservative"},
+    "selective": {"sampler.scheme": "selective"},
+}
+
+
+@pytest.mark.parametrize("leg", sorted(SNAP_LEGS))
+def test_snapshot_matches_reference(leg):
+    """Six steps of lm-tiny at ``smoke`` (seq 16, batch 8), telemetry on
+    with no sink, in both packages from the same params: the registries
+    agree on every ``store.*`` and ``collectives.*`` instrument and on the
+    engine's host-to-device bytes and row gathers."""
+    ov = {"obs.enabled": True, "obs.sink": "none", "shape.seq_len": 16,
+          "shape.global_batch": 8, "steps": 6, **SNAP_LEGS[leg]}
+    jrun = jax_build_run("lm-tiny", preset="smoke", overrides=ov)
+    jax_obs.reset()
+    JaxExperiment(jrun).fit()
+    want = jax_obs.snapshot()
+    params = JaxLM(jrun.model).init(jax.random.PRNGKey(jrun.seed))
+    flat, _ = _flatten(params)
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        obs.reset()
+        exp = Experiment(build_run("lm-tiny", preset="smoke", overrides=ov),
+                         device="cpu")
+        interop.load_params(exp.lm,
+                            {k: np.asarray(v) for k, v in flat.items()})
+        exp.fit()
+    finally:
+        torch.set_num_threads(n)
+    got = obs.snapshot()
+
+    def picked(snap):
+        """The instruments of interest that recorded something (a
+        registry keeps, zeroed, those that earlier tests in the process
+        created)."""
+        return {k: v for k, v in snap.items()
+                if (k.startswith(("store.", "collectives."))
+                    or k in ("engine.h2d_bytes", "engine.row_gathers"))
+                and (v["count"] if isinstance(v, dict) else v)}
+
+    assert picked(got) == picked(want)
+    assert not any(k.startswith("collectives.gather_host_scores")
+                   for k in picked(got))
+    if leg == "fused":
+        assert got["store.staleness"]["count"] > 0
+        assert got["engine.row_gathers"] == 6
+        assert got["engine.h2d_bytes"] > 0
+    else:
+        assert got["store.gather_cache.misses"] > 0
 
 
 @pytest.mark.parametrize("arch", ["lm-tiny", "llama3.2-3b"])

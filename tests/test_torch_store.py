@@ -2,14 +2,31 @@
 (``repro.sampler.store.ScoreStore``) on the same update sequence: EMA
 merges with repeats, sentinel and non-finite entries, unowned ids of a
 strided shard, decay toward its own or a given mean, the global reads,
-the distribution and τ, ``topk`` and a state-dict round trip."""
+the distribution and τ, ``topk`` and a state-dict round trip. With the
+telemetry on, the ``store.staleness`` histogram is the reference's, and
+a one-host global read makes no gather call, as in the reference."""
 import numpy as np
 import pytest
 
 pytest.importorskip("torch")
 
+from repro import obs as jax_obs  # noqa: E402
 from repro.sampler.store import ScoreStore as RefStore  # noqa: E402
+from repro_torch import obs  # noqa: E402
 from repro_torch.sampler.store import ScoreStore  # noqa: E402
+
+
+@pytest.fixture
+def telemetry():
+    """Both packages' registries on and empty for the test, then off and
+    empty again."""
+    for reg in (obs, jax_obs):
+        reg.reset()
+        reg.enable(True)
+    yield
+    for reg in (obs, jax_obs):
+        reg.enable(False)
+        reg.reset()
 
 
 def _same(a, b):
@@ -100,3 +117,51 @@ def test_distribution_from_and_tau_bitwise():
         assert ScoreStore.tau_from(p) == RefStore.tau_from(p)
     _same(ScoreStore.distribution_from(np.full(4, -1.0, np.float32)),
           RefStore.distribution_from(np.full(4, -1.0, np.float32)))
+
+
+@pytest.mark.parametrize("n,host_id,n_hosts", [(97, 0, 1), (100, 1, 3),
+                                               (5, 0, 1)])
+def test_staleness_histogram_matches_reference(telemetry, n, host_id,
+                                               n_hosts):
+    """The ages (update ticks since the last rescore) of revisited ids,
+    observed in the reference's order: equal histograms and clocks. A
+    store written while the registry is off allocates no clock."""
+    kw = dict(host_id=host_id, n_hosts=n_hosts, ema=0.8, staleness=0.7)
+    got, want = ScoreStore(n, **kw), RefStore(n, **kw)
+    _drive(got, n, seed=n + 1)
+    _drive(want, n, seed=n + 1)
+    h, jh = (reg.snapshot()["store.staleness"] for reg in (obs, jax_obs))
+    assert h == jh
+    assert h["count"] > 0
+    assert got._tick == want._tick == 6
+    _same(got._last_tick, want._last_tick)
+    for reg in (obs, jax_obs):
+        reg.enable(False)
+    cold, jcold = ScoreStore(n, **kw), RefStore(n, **kw)
+    _drive(cold, n, seed=0)
+    _drive(jcold, n, seed=0)
+    assert cold._last_tick is None and jcold._last_tick is None
+    assert cold._tick == jcold._tick == 0
+
+
+def test_one_host_global_read_makes_no_gather_call(telemetry):
+    """At one host ``global_scores`` takes the shard itself: no
+    ``collectives.gather_host_scores.*`` counter, as in the reference;
+    the gather cache still counts its hits and misses."""
+    got, want = ScoreStore(40), RefStore(40)
+    for st in (got, want):
+        st.update([1, 7, 39], [0.5, 2.0, 1.0])
+        _same(st.global_scores(), st.sentinel_scores())
+        st.global_scores(use_cache=True)
+        st.global_scores(use_cache=True)
+    _same(got.global_scores(), want.global_scores())
+    # counters that recorded something (a registry keeps, zeroed, those
+    # that earlier tests in the process created)
+    snap, jsnap = ({k: v for k, v in reg.snapshot().items()
+                    if not isinstance(v, dict) and v}
+                   for reg in (obs, jax_obs))
+    assert not any(k.startswith("collectives.") for k in snap), sorted(snap)
+    assert not any(k.startswith("collectives.") for k in jsnap)
+    for name in ("store.gather_cache.hits", "store.gather_cache.misses",
+                 "store.invalidations"):
+        assert snap[name] == jsnap[name] == 1, name
