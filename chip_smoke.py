@@ -156,7 +156,10 @@ Phases, in order; each raises on failure, so the process exits non-zero:
 18. K5/K1 timing — K5 per launch at cell C's prefill, cell D's score
               (8, 1024) and cells A/E's pool (12, 1024) (the wgmma kernel,
               TFLOP/s, and the mma.sync kernel on the same values) and cell
-              C's decode (mma.sync), K1 at cell D's, each beside its plain
+              C's decode (mma.sync), and the f32 mma.sync path at cell I's
+              pool scoring (12, 1024, 10/5 heads of 64, causal; by CUDA
+              events, its bound operations at the f32 rate, SDPA's f32
+              backends), K1 at cell D's, each beside its plain
               version, its bound and (K5) ``scaled_dot_product_attention``
               on the same inputs as a yardstick that the port never calls,
               also under each of its fused backends that runs (flash,
@@ -221,19 +224,28 @@ Phases, in order; each raises on failure, so the process exits non-zero:
               window 1024 and global, peaked, over a 1088-slot cache's
               prefix view; (2, 4096) with window 1024 (the window cuts); a
               ragged (2, 77) at offset 100 over a 300-slot cache; (12, 200)
-              over a cache, window 64, scale 0.2. On the mma.sync kernel
-              (Q staged in shared memory, 32-key tiles): the prefill with q
-              off TMA's alignment; decode at 700 over a 1024-slot ring
-              before the wrap; decode over a full 1024-slot ring, not
-              causal, and peaked. One hd-128 case with window 256 < sq
-              (wgmma). Both hd-256 kernels' registers and spills are
-              logged, and the wgmma one must have no spills;
+              over a cache, window 64, scale 0.2. On the decode kernel
+              (``flash_attn_decode.cu``): decode at 700 over a 1024-slot
+              ring before the wrap; over a full 1024-slot ring, not
+              causal, and peaked; at 1023 with window 100 (the window cuts)
+              and scale 0.2; over the 1088-slot global cache's 1087-key
+              prefix. On the mma.sync kernel (Q staged in shared memory,
+              32-key tiles): the prefill with q off TMA's alignment. One
+              hd-128 case with window 256 < sq (wgmma). The three hd-256
+              kernels' registers and spills are logged, and the wgmma and
+              decode ones must have no spills; the decode kernel's
+              resident blocks an SM (occupancy calculator) must be the 2
+              its split rule counts, and 64 of its 2-block clusters must
+              fit the card at once;
 23b. K5 hd 256 timing — gemma3's prefill (8, 1024) and (2, 4096) with
               the window of 1024 on both kernels (the mma kernel on an
               off-TMA copy of q), by CUDA events (the rows' ms) and by
               device time (``_device_ms``), with TFLOP/s and the share of
-              the bound, and decode over a full ring (device time), each
-              beside its
+              the bound, and decode over a full ring on the decode kernel
+              (device time: the same inputs, 4 rings in rotation so that
+              nothing stays in L2, the 1088-slot global cache's 1087-key
+              prefix; the mma kernel on the same values; the dispatch by
+              an event loop and by the host clock), each beside its
               plain version, its bound and ``scaled_dot_product_attention``
               under each backend that takes hd 256;
 24. gemma3 reduced — ``reduced(gemma3-12b, repeats=2)`` (window 64, f32) on
@@ -251,7 +263,7 @@ Phases, in order; each raises on failure, so the process exits non-zero:
               prompt_len=1024, gen=64)`` at full width and depth (48 layers,
               cuts printed); counts zeroed just before and read just after
               (K5: 48 in the prefill, all the wgmma kernel's, and 48 in
-              each of the 63 decode steps, all the mma kernel's, rings
+              each of the 63 decode steps, all the decode kernel's, rings
               wrapped from the first decode step; K1 0); prefill and
               decode times, tokens/s, peak; then phase 16's token check
               (K5 beside each plain call, the f32
@@ -627,7 +639,8 @@ KERNEL_GROUPS = (  # first match wins; names as the profiler reports them
     ("K4 ce_score_block", ("ce_token_kernel", "row_sum_kernel")),
     ("K5 flash_attention", ("flash_fwd_wgmma_kernel",
                             "flash_fwd_wgmma256_kernel", "flash_bf16_kernel",
-                            "flash_f32_kernel", "combine_kernel")),
+                            "flash_f32_kernel", "combine_kernel",
+                            "flash_decode_kernel")),
     ("K1, K2/K3 ce_score, pool_select", ("ce_score_kernel",
                                          "pool_select_kernel")),
     ("matmul", ("gemm", "nvjet", "xmma", "cutlass", "sgemm")),
@@ -1502,8 +1515,10 @@ def _k5_zero(k5):
 
 def _k5_counts(**moved):
     """K5's ``launches_by_kernel`` with ``moved``'s counts and the other
-    kernels' 0: ``wgmma`` (hd 128), ``wgmma256`` (hd 256), ``mma``."""
-    return dict(dict.fromkeys(("wgmma", "wgmma256", "mma"), 0), **moved)
+    kernels' 0: ``wgmma`` (hd 128), ``wgmma256`` (hd 256), ``decode256``
+    (hd 256, one query row), ``mma``."""
+    return dict(dict.fromkeys(("wgmma", "wgmma256", "decode256", "mma"), 0),
+                **moved)
 
 
 def _k5_inputs(b, sq, skv, hq, hkv, hd, dtype, gen, slots=0, q_scale=1.0):
@@ -2204,6 +2219,49 @@ def _off_tma(t):
     return buf[2:].view(t.shape).copy_(t)
 
 
+def _time_k5_f32(gen):
+    """Phase 18a's f32 row: K5's f32 mma.sync path at cell I's pool
+    scoring (lm-100m: the (12, 1024) pool, 10/5 heads of 64, causal; 12
+    launches a step), by CUDA events (the median of 3 rounds of 20 calls,
+    in turns with SDPA under each backend that takes f32), beside its plain
+    version and its bound (operations at the f32 rate outside the tensor
+    cores: the kernel computes in plain f32 FMA)."""
+    from repro_torch.kernels.flash_attn import flash_attn as k5
+    from repro_torch.kernels.flash_attn.ops import flash_attention
+    b, s, hq, hkv, hd = 12, 1024, 10, 5, 64
+    q, k, v = _k5_inputs(b, s, s, hq, hkv, hd, torch.float32, gen)
+    assert k5.plan(q, k, v) == "mma"
+    runs = {"mma": lambda: flash_attention(q, k, v),
+            "sdpa": _sdpa(q, k, v, True),
+            **{f"sdpa {n}": f for n, f in
+               _sdpa_backends(q, k, v, True).items()}}
+    ev = {key: [] for key in runs}
+    for r in range(3):
+        for key in (list(runs) if r % 2 == 0 else list(runs)[::-1]):
+            ev[key].append(_time(runs[key], 20))
+    med = {key: sorted(ts)[1] for key, ts in ev.items()}
+    n_ops = _attn_flops(b, hq, hd, s, s, 0)
+    n_bytes = 4 * (2 * b * s * hq * hd + 2 * b * s * hkv * hd)
+    bound_ms, by = _bound(n_bytes, n_ops, F32_FLOPS_PER_S)
+    by_backend = {key[5:]: t for key, t in med.items()
+                  if key.startswith("sdpa ")}
+    row = dict(
+        shape=f"q ({b},{s},{hq},{hd}), kv ({b},{s},{hkv},{hd}) f32, causal "
+              f"(cell I's pool scoring, 12 launches a step)",
+        kernel="mma", ms=med["mma"], rounds_ms=ev,
+        plain_ms=_time(lambda: _k5_plain(q, k, v), 2),
+        library_ms=med["sdpa"], library_ms_by_backend=by_backend,
+        bound_ms=bound_ms, bound_by=by, flop=n_ops,
+        share_of_bound=bound_ms / med["mma"],
+        tflops=n_ops / (med["mma"] * 1e-3) / 1e12,
+        sdpa_tflops={n: n_ops / (t * 1e-3) / 1e12
+                     for n, t in by_backend.items()},
+        timed_by="CUDA events, the median of 3 rounds of 20 calls, in turns")
+    del q, k, v, runs
+    torch.cuda.empty_cache()
+    return row
+
+
 def time_k5(gen):
     """Phase 18a: K5 per launch at cell C's prefill, cell D's score and
     cells A/E's pool (the wgmma kernel, and the mma.sync kernel on the same
@@ -2285,13 +2343,15 @@ def time_k5(gen):
                          event_loop_ms=loop_ms)
     del q, k, v, sdpa
     torch.cuda.empty_cache()
+    res["f32 pool (12, 1024)"] = _time_k5_f32(gen)
     for name, r in res.items():
         extra = ""
         if "tflops" in r:
             extra = (f"; {r['tflops']:.1f} TFLOP/s (rounds "
-                     f"{[round(t, 4) for t in r['rounds_ms']['wgmma']]}); "
-                     f"the mma kernel on the same values {r['mma_ms']:.4f} "
-                     f"ms; SDPA by backend "
+                     f"{[round(t, 4) for t in r['rounds_ms'][r['kernel']]]})"
+                     + (f"; the mma kernel on the same values "
+                        f"{r['mma_ms']:.4f} ms" if "mma_ms" in r else "")
+                     + "; SDPA by backend "
                      + ", ".join(f"{n} {t:.4f} ms ({r['sdpa_tflops'][n]:.1f}"
                                  f" TFLOP/s)" for n, t in
                                  r["library_ms_by_backend"].items()))
@@ -2857,29 +2917,46 @@ def check_k5_hd256(gen):
     """Phase 23: K5 at gemma3's head dim 256, each case against the plain
     version within the unchanged ``K5_TOL``/``K5_ROW_REL``, a second launch
     the same bits: the prefill shapes on the wgmma kernel
-    (``flash_attn_fwd_wgmma256.cu``), the decode on the mma.sync kernel,
-    the mma kernel's prefill on an off-TMA copy of q, and a windowed hd-128
-    case (wgmma). Each case asserts which kernel took it. Both kernels'
-    registers and spills at hd 256 are logged; the wgmma one has none.
-    Returns (per case, the ptxas lines of the two hd-256 kernels)."""
+    (``flash_attn_fwd_wgmma256.cu``), the decode shapes on the decode
+    kernel (``flash_attn_decode.cu``: a full ring, before the wrap, a
+    window that cuts, the global cache's prefix), the mma kernel's prefill
+    on an off-TMA copy of q, and a windowed hd-128 case (wgmma). Each case
+    asserts which kernel took it. The three hd-256 kernels' registers and
+    spills are logged; the wgmma and decode ones have none. The decode
+    kernel's resident blocks an SM (the occupancy calculator) must be the
+    ``DECODE_BLOCKS_PER_SM`` its split rule counts, and the card must hold
+    cell F's 64 clusters of 2 blocks at once. Returns (per case,
+    the ptxas lines of the hd-256 kernels)."""
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attn import flash_attn as k5
     hq, hkv, hd, w = (GEMMA[k] for k in ("hq", "hkv", "hd", "window"))
     bf = torch.bfloat16
     ptxas = {}
-    for lib, key in ((k5.LIB, "ILi256E"), (k5.LIB_WGMMA, "wgmma256")):
+    for lib, key in ((k5.LIB, "ILi256E"), (k5.LIB_WGMMA, "wgmma256"),
+                     (k5.LIB_DECODE, "flash_decode")):
         report = _ptxas_by_kernel(
             (build.BUILD_DIR / f"{lib}.log").read_text())
         found = {fn: r for fn, r in report.items() if key in fn}
         assert found, (lib, sorted(report))
         ptxas.update(found)
     assert all("0 bytes spill stores, 0 bytes spill loads" in r
-               for fn, r in ptxas.items() if "wgmma256" in fn), ptxas
-    log(f"[k5 hd256] ptxas, the hd-256 kernels (mma.sync, wgmma): {ptxas}")
+               for fn, r in ptxas.items()
+               if "wgmma256" in fn or "flash_decode" in fn), ptxas
+    log(f"[k5 hd256] ptxas, the hd-256 kernels (mma.sync, wgmma, decode): "
+        f"{ptxas}")
+    occupancy = [k5.decode_occupancy(g, 2) for g in
+                 range(1, k5.DECODE_MAX_G + 1)]
+    assert [n for n, _ in occupancy] == \
+        [k5.DECODE_BLOCKS_PER_SM] * k5.DECODE_MAX_G, occupancy
+    assert min(c for _, c in occupancy) >= 64, occupancy
+    log(f"[k5 hd256] the decode kernel: (resident blocks an SM, clusters of "
+        f"2 blocks the card holds: cell F's 64 pairs x 2 splits) for 1..."
+        f"{k5.DECODE_MAX_G} query heads a block: {occupancy}; the split rule "
+        f"counts {k5.DECODE_BLOCKS_PER_SM} blocks an SM")
     q = torch.zeros(2, 64, hq, hd, dtype=bf, device="cuda")
     kv = torch.zeros(2, 64, hkv, hd, dtype=bf, device="cuda")
     assert k5.plan(q, kv, kv) == "wgmma"
-    assert k5.plan(q[:, :1], kv, kv) == "mma"
+    assert k5.plan(q[:, :1], kv, kv) == "decode"
     assert k5.plan(_off_tma(q), kv, kv) == "mma"
     # name, kernel, (b, sq, skv, hq, hkv, hd), keywords of _k5_case
     g3 = (8, 1024, 1024, hq, hkv, hd)
@@ -2903,12 +2980,19 @@ def check_k5_hd256(gen):
         (f"gemma3 prefill (8,1024), window {w}, q off TMA's alignment (the "
          "mma kernel's prefill)", "mma", g3, dict(window=w, off_tma=True)),
         (f"decode (8,1) at 700 over a {w}-slot ring before the wrap",
-         "mma", (8, 1, 701, hq, hkv, hd),
+         "decode256", (8, 1, 701, hq, hkv, hd),
          dict(window=w, q_offset=700, slots=w)),
-        (f"decode (8,1) over a full {w}-slot ring, not causal", "mma",
+        (f"decode (8,1) over a full {w}-slot ring, not causal", "decode256",
          (8, 1, w, hq, hkv, hd), dict(causal=False)),
         (f"decode (8,1) over a full {w}-slot ring, q x{Q_PEAK:g} (peaked)",
-         "mma", (8, 1, w, hq, hkv, hd), dict(causal=False, q_scale=Q_PEAK)),
+         "decode256", (8, 1, w, hq, hkv, hd),
+         dict(causal=False, q_scale=Q_PEAK)),
+        ("decode (8,1) at 1023, window 100 (the window cuts), scale 0.2",
+         "decode256", (8, 1, w, hq, hkv, hd),
+         dict(window=100, q_offset=w - 1, scale=0.2)),
+        ("decode (8,1) at 1086 over the 1088-slot global cache's prefix",
+         "decode256", (8, 1, 1087, hq, hkv, hd),
+         dict(q_offset=1086, slots=1088)),
         ("hd 128 (2,1024) 24/8x128, window 256 < sq", "wgmma",
          (2, 1024, 1024, 24, 8, 128), dict(window=256)),
     ]
@@ -3031,11 +3115,12 @@ GEMMA_SERVE_CUTS = (
 def run_gemma_serve(out):
     """Phase 25: serving gemma3-12b at full width and depth: every layer of
     the prefill takes the wgmma kernel (hd 256) and every layer of each
-    decode step the mma kernel, global caches and rings, before and after
-    the wrap; phase 16's token check; the prefill and 4 decode steps under
-    ``torch.profiler`` as cell C's (``profile_gemma_serve_*.txt``)."""
+    decode step the decode kernel (48 ``decode256`` a step: 40 rings, from
+    the first step after the wrap, and 8 global caches); phase 16's token
+    check; the prefill and 4 decode steps under ``torch.profiler`` as cell
+    C's (``profile_gemma_serve_*.txt``)."""
     row, cmp, lm, prompts, toks = _serve_cell(
-        "gemma3-12b", GEMMA_SERVE, ("wgmma256", "mma"), "gemma serve",
+        "gemma3-12b", GEMMA_SERVE, ("wgmma256", "decode256"), "gemma serve",
         GEMMA_SERVE_CUTS)
     cmp["profile"] = profile_serve(lm, prompts, toks, row, out, tag="F",
                                    fname="profile_gemma_serve")
@@ -3175,6 +3260,107 @@ def _attn_flops(b, hq, hd, sq, skv, window, causal=True, q_offset=0):
     return 4 * b * hq * hd * int((hi - lo).sum())
 
 
+def _host_loop_ms(fn, n=200):
+    """The host's time per call of ``fn`` over n calls queued without a
+    synchronise (its dispatch, where the card runs the calls faster than
+    the host queues them); the card drained before and after."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    ms = (time.perf_counter() - t0) / n * 1e3
+    torch.cuda.synchronize()
+    return ms
+
+
+def _time_decode256(gen):
+    """Phase 23b's decode row: cell F's decode over a full 1024-slot ring
+    (b 8, 16/8 heads of 256, bf16, not causal) on the decode kernel by its
+    device time three ways: on the same inputs; over 4 distinct rings in
+    rotation (4 x 67 MB, so nothing stays in the 50 MB L2, as in a decode
+    step, whose 48 layers read 48 caches); over the 1088-slot global
+    cache's 1087-key prefix (causal, at 1086). Beside it, on the same
+    values: the mma kernel (``flash_attn._launch_mma``, the path before the
+    decode kernel), SDPA by backend, the plain version, the bound, and the
+    dispatch: CUDA events around a loop of calls (``event_loop_ms``) and
+    the host clock over calls queued without a synchronise."""
+    import itertools
+    from repro_torch.kernels.flash_attn import flash_attn as k5
+    from repro_torch.kernels.flash_attn.ops import flash_attention
+    hq, hkv, hd, w = (GEMMA[k] for k in ("hq", "hkv", "hd", "window"))
+    b, bf = 8, torch.bfloat16
+    q, k, v = _k5_inputs(b, 1, w, hq, hkv, hd, bf, gen)
+    kw = dict(causal=False)
+    assert k5.plan(q, k, v) == "decode"
+    ms = _device_ms(lambda: flash_attention(q, k, v, **kw), 50)
+    rings = [(k, v)] + [_k5_inputs(b, 1, w, hq, hkv, hd, bf, gen)[1:]
+                        for _ in range(3)]
+    turn = itertools.count()
+
+    def rotate():
+        kr, vr = rings[next(turn) % len(rings)]
+        return flash_attention(q, kr, vr, **kw)
+    rot_ms = _device_ms(rotate, 48)
+    del rings
+    qg, kg, vg = _k5_inputs(b, 1, 1087, hq, hkv, hd, bf, gen, slots=1088)
+    glob_ms = _device_ms(lambda: flash_attention(qg, kg, vg, q_offset=1086),
+                         50)
+    glob_bound, _ = _bound(2 * (2 * b * hq * hd + 2 * b * 1087 * hkv * hd),
+                           4 * b * hq * hd * 1087, BF16_FLOPS_PER_S)
+    del qg, kg, vg
+    o = torch.empty_like(q)
+    scale = hd ** -0.5
+
+    def mma():
+        k5._launch_mma(q, k, v, o, False, 0, 0, scale)
+    mma_ms = _device_ms(mma, 50)
+    lib = {"sdpa": _sdpa(q, k, v, False),
+           **{f"sdpa {n}": f for n, f in
+              _sdpa_backends(q, k, v, False).items()}}
+    lib_ms = {key: _device_ms(f, 50) for key, f in lib.items()}
+    n_bytes = 2 * (2 * b * hq * hd + 2 * b * w * hkv * hd)
+    n_ops = 4 * b * hq * hd * w
+    bound_ms, by = _bound(n_bytes, n_ops, BF16_FLOPS_PER_S)
+    row = dict(
+        shape=f"q ({b},1,{hq},{hd}), kv a full {w}-slot ring ({b},{w},{hkv},"
+              f"{hd}) bf16, not causal",
+        kernel="decode256", ms=ms, ms_l2_cold_rotation=rot_ms,
+        share_of_bound=bound_ms / ms,
+        share_of_bound_l2_cold=bound_ms / rot_ms,
+        global_prefix=dict(shape=f"q ({b},1,{hq},{hd}) at 1086, kv the "
+                                 f"1088-slot global cache's 1087-key prefix, "
+                                 f"causal", ms=glob_ms, bound_ms=glob_bound,
+                           share_of_bound=glob_bound / glob_ms),
+        mma_ms=mma_ms,
+        plain_ms=_device_ms(lambda: _k5_plain(q, k, v, rows=8, **kw), 10),
+        library_ms=lib_ms["sdpa"],
+        library_ms_by_backend={key[5:]: t for key, t in lib_ms.items()
+                               if key.startswith("sdpa ")},
+        bound_ms=bound_ms, bound_by=by,
+        tb_per_s=n_bytes / (ms * 1e-3) / 1e12,
+        event_loop_ms=_time(lambda: flash_attention(q, k, v, **kw), 100),
+        host_loop_ms=_host_loop_ms(lambda: flash_attention(q, k, v, **kw)),
+        mma_event_loop_ms=_time(mma, 100), mma_host_loop_ms=_host_loop_ms(mma),
+        timed_by=DEVICE_TIMED + "; event_loop_ms: CUDA events around 100 "
+                 "calls; host_loop_ms: the host clock over 200 calls queued "
+                 "without a synchronise")
+    best = min(row["library_ms_by_backend"].values(), default=row["library_ms"])
+    log(f"[timing hd256] K5 decode: the decode kernel {ms:.4f} ms device "
+        f"time ({row['share_of_bound']:.3f} of the {bound_ms:.4f} ms bound), "
+        f"{rot_ms:.4f} over 4 rings in rotation (L2-cold, "
+        f"{row['share_of_bound_l2_cold']:.3f}), {glob_ms:.4f} over the "
+        f"1087-key global prefix (bound {glob_bound:.4f}); the mma kernel "
+        f"on the same values {mma_ms:.4f}; SDPA's best backend {best:.4f} "
+        f"(the decode kernel {'under' if ms < best else 'NOT under'} it); "
+        f"dispatch per call: events {row['event_loop_ms']:.4f} ms, host "
+        f"{row['host_loop_ms']:.4f} ms (the mma kernel's launch helper alone:"
+        f" {row['mma_event_loop_ms']:.4f} / {row['mma_host_loop_ms']:.4f})")
+    del q, k, v, o, lib
+    torch.cuda.empty_cache()
+    return row
+
+
 def time_k5_hd256(gen):
     """Phase 23b: K5 at gemma3's shapes. The prefill (8, 1024, 16/8, 256),
     causal with the window of 1024 (which cuts nothing at 1024 queries),
@@ -3189,8 +3375,8 @@ def time_k5_hd256(gen):
     ``library_ms``) is the CUDA events' time, the yardstick of every
     prefill row since phase 18a's; the device time stands beside it
     (``device_ms``), since at ~0.15 ms a launch the wrapper's host
-    dispatch can set an event loop's pace. Decode over a full 1024-slot
-    ring (8 rows, not causal; the mma kernel) by its device time."""
+    dispatch can set an event loop's pace. The decode on the decode
+    kernel by its device time (``_time_decode256``)."""
     from repro_torch.kernels.flash_attn import flash_attn as k5
     from repro_torch.kernels.flash_attn.ops import flash_attention
     hq, hkv, hd, w = (GEMMA[k] for k in ("hq", "hkv", "hd", "window"))
@@ -3249,32 +3435,7 @@ def time_k5_hd256(gen):
                      "in turns; device_ms: " + DEVICE_TIMED)
         del q, k, v, q_off, runs, sdpa
         torch.cuda.empty_cache()
-    b = 8
-    q, k, v = _k5_inputs(b, 1, w, hq, hkv, hd, torch.bfloat16, gen)
-    kw = dict(causal=False)
-    assert k5.plan(q, k, v) == "mma"
-    ms = _device_ms(lambda: flash_attention(q, k, v, **kw), 50)
-    lib = {"sdpa": _sdpa(q, k, v, False),
-           **{f"sdpa {n}": f for n, f in
-              _sdpa_backends(q, k, v, False).items()}}
-    lib_ms = {key: _device_ms(f, 50) for key, f in lib.items()}
-    n_bytes = 2 * (2 * b * hq * hd + 2 * b * w * hkv * hd)
-    n_ops = 4 * b * hq * hd * w
-    bound_ms, by = _bound(n_bytes, n_ops, BF16_FLOPS_PER_S)
-    res["decode"] = dict(
-        shape=f"q ({b},1,{hq},{hd}), kv a full {w}-slot ring ({b},{w},{hkv},"
-              f"{hd}) bf16, not causal",
-        kernel="mma", ms=ms,
-        plain_ms=_device_ms(lambda: _k5_plain(q, k, v, rows=8, **kw), 10),
-        library_ms=lib_ms["sdpa"],
-        library_ms_by_backend={key[5:]: t for key, t in lib_ms.items()
-                               if key.startswith("sdpa ")},
-        bound_ms=bound_ms, bound_by=by,
-        tb_per_s=n_bytes / (ms * 1e-3) / 1e12,
-        event_loop_ms=_time(lambda: flash_attention(q, k, v, **kw), 100),
-        timed_by=DEVICE_TIMED)
-    del q, k, v, lib
-    torch.cuda.empty_cache()
+    res["decode"] = _time_decode256(gen)
     for name, r in res.items():
         backends = {n: round(t, 4)
                     for n, t in (r["library_ms_by_backend"] or {}).items()}
@@ -3319,14 +3480,16 @@ def main():
                     held_by="phase 8 (K6) and 9 (sharded)"),
                dict(name="flash_attention", route="cuda",
                     builds=[(k5.LIB_WGMMA, k5.SOURCES_WGMMA),
-                            (k5.LIB, k5.SOURCES)],
+                            (k5.LIB, k5.SOURCES),
+                            (k5.LIB_DECODE, k5.SOURCES_DECODE)],
                     source=csrc.format("flash_attn",
                                        "flash_attn_fwd_wgmma.cu"),
                     replaces="src/repro/kernels/flash_attn/flash_attn.py:66",
-                    held_by="phase 13 (K5, both kernels), 15 (serve "
-                            "lm-tiny, mma), 16 (cell C: beside every "
-                            "plain attention call, and the route against "
-                            "the plain route), 23 (hd 256 and windows), 24 "
+                    held_by="phase 13 (K5, the wgmma and mma kernels), "
+                            "15 (serve lm-tiny, mma), 16 (cell C: beside "
+                            "every plain attention call, and the route "
+                            "against the plain route), 23 (hd 256: the "
+                            "wgmma256, decode and mma kernels; windows), 24 "
                             "(gemma3 reduced, card against CPU), 25 (gemma3 "
                             "serve, as 16) and 26/28 (the scores against "
                             "'fused')"),
@@ -3437,7 +3600,7 @@ def main():
     def k5_worst(kernel):
         return max(c["max_abs_err"] for c in k5_cases.values()
                    if c["kernel"] == kernel)
-    g3 = k5_256_t["prefill"]
+    g3, d256 = k5_256_t["prefill"], k5_256_t["decode"]
     ps_key = f"pool_select ({POOL[0]}, {POOL[1]}) k {BATCH}"
     ps_cell_e = {k: ps_t[ps_key][k]
                  for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
@@ -3504,11 +3667,37 @@ def main():
                        timed_by=g3["timed_by"],
                        timed_at="gemma3 prefill (8, 1024); (2, 4096) with "
                                 "the window in by_shape_hd256 of flash_mma"),
+                  dict(name="flash_decode256", route="cuda",
+                       source=csrc.format("flash_attn",
+                                          "flash_attn_decode.cu"),
+                       serves="bf16, hd 256, one query row (gemma3's decode "
+                              "over its rings and global caches)",
+                       launches=gemma_serve["k5_launches_by_kernel"][
+                           "decode256"],
+                       launches_by_path=k5_paths("decode256"),
+                       max_abs_err=k5_worst("decode256"),
+                       ms=d256["ms"], plain_ms=d256["plain_ms"],
+                       bound_ms=d256["bound_ms"], bound_by=d256["bound_by"],
+                       library_ms=d256["library_ms"],
+                       library_ms_by_backend=d256["library_ms_by_backend"],
+                       share_of_bound=d256["share_of_bound"],
+                       ms_l2_cold_rotation=d256["ms_l2_cold_rotation"],
+                       global_prefix=d256["global_prefix"],
+                       mma_ms=d256["mma_ms"],
+                       event_loop_ms=d256["event_loop_ms"],
+                       host_loop_ms=d256["host_loop_ms"],
+                       ptxas={fn: r for fn, r in ptxas_256.items()
+                              if "flash_decode" in fn},
+                       timed_by=d256["timed_by"],
+                       timed_at="cell F's decode over a full 1024-slot ring "
+                                "(b 8, 16/8 heads of 256, not causal); "
+                                "4 rings in rotation and the 1087-key "
+                                "global prefix beside it"),
                   dict(name="flash_mma", route="cuda",
                        source=csrc.format("flash_attn", "flash_attn_fwd.cu"),
-                       serves="decode (hd 256: gemma3's ring decode), f32, "
-                              "other head dims, unaligned views, windowed "
-                              "rings",
+                       serves="the hd-128 decode, f32, other head dims, "
+                              "hd-256 prefills off TMA's alignment or under "
+                              "64 rows, unaligned views",
                        launches=cell_c["k5_launches_by_kernel"]["mma"],
                        launches_by_path=k5_paths("mma"),
                        max_abs_err=k5_worst("mma"), ms=dec["ms"],
@@ -3517,10 +3706,12 @@ def main():
                        library_ms=dec["library_ms"],
                        library_ms_by_backend=None,
                        by_shape_hd256=k5_256_t, ptxas_hd256=ptxas_256,
+                       f32=k5_t["f32 pool (12, 1024)"],
                        timed_at="cell C decode (device time); on the "
                                 "wgmma shapes as mma_ms in by_shape; "
-                                "gemma3's prefill and ring decode at hd 256 "
-                                "in by_shape_hd256")]),
+                                "gemma3's prefill and its decode (mma_ms) "
+                                "at hd 256 in by_shape_hd256; cell I's f32 "
+                                "pool scoring in f32")]),
         entry(3, launches=k1_launches, max_abs_err=k1_err, ms=k1_t[0],
               plain_ms=k1_t[1], bound_ms=k1_t[2], bound_by=k1_t[3],
               library_ms=None, launches_by_path={

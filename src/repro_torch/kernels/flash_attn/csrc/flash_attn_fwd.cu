@@ -23,10 +23,13 @@
 //
 // The wgmma kernels (flash_attn_fwd_wgmma.cu, flash_attn_fwd_wgmma256.cu)
 // take bf16 prefill and scoring at hd = 128 and 256 (the wrapper's
-// kernel_for rule: at least 64 query rows, TMA-aligned q, k, v); this
-// kernel serves decode (sq = 1, the kv range split; gemma3's ring decode
-// at hd 256), f32 (lm-tiny), the other bf16 head dims and calls not
-// aligned for TMA.
+// kernel_for rule: at least 64 query rows, TMA-aligned q, k, v), and the
+// decode kernel (flash_attn_decode.cu) bf16 at hd 256 with one query row
+// (gemma3's decode); this kernel serves the hd-128 decode (sq = 1, the kv
+// range split), f32 (lm-tiny, lm-100m), the other bf16 head dims and calls
+// not aligned for TMA. Its hd-256 instance stays for the hd-256 prefills
+// the wgmma kernel refuses (fewer than 64 query rows, off TMA's alignment,
+// a softmax scale <= 0).
 //
 // Bound: at decode (sq = 1) reading the cache once is the bound; a
 // prefill (4*b*hq*hd*sum_i(i+1) flop) is compute-bound.

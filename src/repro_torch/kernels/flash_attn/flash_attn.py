@@ -1,6 +1,6 @@
 """K5 on Hopper: the flash-attention forward, hand-written CUDA.
 
-Two kernels replace the TPU kernel ``flash_attention_pallas`` of
+Three kernels replace the TPU kernel ``flash_attention_pallas`` of
 ``repro/kernels/flash_attn/flash_attn.py`` (and the fold of its wrapper),
 registered together as ``torch.ops.repro_torch.flash_attention``:
 
@@ -10,23 +10,28 @@ registered together as ``torch.ops.repro_torch.flash_attention``:
   (gemma3; ``csrc/flash_attn_fwd_wgmma256.cu``, 64-key tiles, Q in a ring
   of 64-row halves), at least ``WGMMA_MIN_ROWS`` query rows and
   TMA-aligned q, k and v;
+* ``decode`` (``csrc/flash_attn_decode.cu``, library ``LIB_DECODE``):
+  bf16 at hd 256 with one query row (gemma3's decode over its rings and
+  global caches), f32 FMA on CUDA cores, whole key rows streamed by
+  cp.async, the key range split by ``decode_split`` and a pair's splits
+  merged in the same launch through a thread block cluster;
 * ``mma`` (``csrc/flash_attn_fwd.cu``, library ``LIB``): everything else
-  the port calls, decode (one query row, the kv range split over blocks;
-  gemma3's ring decode at hd 256, whose block stages Q in shared memory),
-  f32 and the other bf16 head dims (16, 32, 64), on ``mma.sync``.
+  the port calls, the hd-128 decode (one query row, the kv range split
+  over blocks), f32, the other bf16 head dims (16, 32, 64) and the hd-256
+  prefills the wgmma kernel refuses, on ``mma.sync``.
 
 ``kernel_for`` is the dispatch rule, a pure function of dtype, shape and
 alignment; ``plan`` checks a call and names its kernel. Each library is
 compiled by ``repro_torch.kernels.build`` on its first launch. The wrapper
 allocates the output and the kv-split scratch, launches on PyTorch's
 current stream and raises if the launch fails: there is no fallback from
-one kernel to the other, nor to the plain version (``ops.flash_attention``
+one kernel to another, nor to the plain version (``ops.flash_attention``
 picks that only for CPU tensors or ``interpret=True``).
 
 ``launches`` counts the wrapper's launches and ``launches_by_kernel`` each
-kernel's where it launches: ``"wgmma"`` (hd 128), ``"wgmma256"`` (hd 256)
-and ``"mma"``; ``chip_smoke.py`` zeroes them around a main path to show
-which kernel the path went through.
+kernel's where it launches: ``"wgmma"`` (hd 128), ``"wgmma256"`` (hd 256),
+``"decode256"`` and ``"mma"``; ``chip_smoke.py`` zeroes them around a
+main path to show which kernel the path went through.
 """
 import ctypes
 import functools
@@ -41,17 +46,27 @@ LIB_WGMMA = "flash_attn_fwd_wgmma"      # the wgmma kernels' library
 SOURCES_WGMMA = tuple(Path(__file__).with_name("csrc") / f for f in (
     "flash_attn_fwd_wgmma.cu", "flash_attn_fwd_wgmma256.cu",
     "flash_attn_wgmma.cuh"))
+LIB_DECODE = "flash_attn_decode"        # the hd-256 decode kernel's library
+SOURCES_DECODE = (Path(__file__).with_name("csrc") / "flash_attn_decode.cu",)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _BF16_HD = (16, 32, 64, 128, 256)
 _ROWS = 64                              # packed query rows per block
 _MAX_SPLIT = 32
 WGMMA_MIN_ROWS = 64                     # query rows: half a work tile
 WGMMA_HD = (128, 256)                   # head dims of the wgmma kernels
+# the decode kernel (flash_attn_decode.cu: kTile, kMinBlocks, kMaxG,
+# kMaxSplit)
+DECODE_HD = 256
+DECODE_TILE = 32                        # keys a block step: 8 warps x 4
+DECODE_BLOCKS_PER_SM = 2                # resident blocks an SM
+DECODE_MAX_G = 4                        # query heads a block
+DECODE_MAX_SPLIT = 8                    # blocks a cluster (portable)
 
 launches = 0
-launches_by_kernel = {"wgmma": 0, "wgmma256": 0, "mma": 0}
+launches_by_kernel = {"wgmma": 0, "wgmma256": 0, "decode256": 0, "mma": 0}
 
 
+@functools.cache
 def _lib():
     from repro_torch.kernels import build
     fn = build.load(LIB, SOURCES).flash_attn_fwd_launch
@@ -62,6 +77,7 @@ def _lib():
     return fn
 
 
+@functools.cache
 def _lib_wgmma(hd: int):
     """The wgmma kernel's launch entry for head dim ``hd`` (128 or 256)."""
     from repro_torch.kernels import build
@@ -73,6 +89,34 @@ def _lib_wgmma(hd: int):
                    i, i, i, i, i, ctypes.c_float, p]
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def _lib_decode():
+    """The decode kernel's launch entry and its occupancy query."""
+    from repro_torch.kernels import build
+    lib = build.load(LIB_DECODE, SOURCES_DECODE)
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn = lib.flash_decode_launch
+    fn.argtypes = [p, p, p, p, i, i, i, i, *[ll] * 10, i, i, i,
+                   ctypes.c_float, p]
+    fn.restype = ctypes.c_int
+    occ = lib.flash_decode_occupancy
+    occ.argtypes = [i, i, ctypes.POINTER(i)]
+    occ.restype = i
+    return fn, occ
+
+
+def decode_occupancy(g_block: int, nsplit: int):
+    """The decode kernel's resident blocks an SM for ``g_block`` query
+    heads a block, and the clusters of ``nsplit`` such blocks the card
+    holds at once, by the CUDA occupancy calculator on the current device
+    (``decode_split`` counts ``DECODE_BLOCKS_PER_SM``)."""
+    clusters = ctypes.c_int(0)
+    n = _lib_decode()[1](g_block, nsplit, ctypes.byref(clusters))
+    if n < 0:
+        raise RuntimeError(f"flash_decode_occupancy failed: cudaError {-n}")
+    return n, clusters.value
 
 
 def tma_geometry(t: Tensor) -> tuple:
@@ -100,17 +144,50 @@ def _tma_ok(t: Tensor) -> bool:
 
 def kernel_for(dtype, hd: int, sq: int, aligned: bool,
                scale: float = 1.0) -> str:
-    """The dispatch rule: ``"wgmma"`` for bf16 with hd in ``WGMMA_HD``
-    (128, and 256 for gemma3), at least
-    ``WGMMA_MIN_ROWS`` query rows (prefill and scoring; below that the
-    rows of one head fill less than half a 128-row work tile), TMA-aligned
-    q, k and v (``aligned``) and a positive softmax scale (the kernel takes
-    its row max on the unscaled scores); else ``"mma"`` (decode, f32,
-    other head dims, unaligned views, any other scale)."""
+    """The dispatch rule: ``"decode"`` for bf16 at hd ``DECODE_HD`` (256)
+    with one query row (any alignment the checks allow, any scale);
+    ``"wgmma"`` for bf16 with hd in ``WGMMA_HD`` (128, and 256 for gemma3),
+    at least ``WGMMA_MIN_ROWS`` query rows (prefill and scoring; below that
+    the rows of one head fill less than half a 128-row work tile),
+    TMA-aligned q, k and v (``aligned``) and a positive softmax scale (the
+    kernel takes its row max on the unscaled scores); else ``"mma"``
+    (hd-128 decode, f32, other head dims, short or unaligned prefills, any
+    other scale)."""
+    if dtype == torch.bfloat16 and hd == DECODE_HD and sq == 1:
+        return "decode"
     if (dtype == torch.bfloat16 and hd in WGMMA_HD and sq >= WGMMA_MIN_ROWS
             and aligned and scale > 0):
         return "wgmma"
     return "mma"
+
+
+def decode_keys(skv: int, causal: bool, window: int, q_offset: int):
+    """The keys [lo, hi) one query row at ``q_offset`` attends to: what the
+    causal edge and the window leave of [0, skv)."""
+    hi = min(skv, q_offset + 1) if causal else skv
+    lo = max(0, q_offset - window + 1) if window > 0 else 0
+    return lo, hi
+
+
+def decode_heads(g: int) -> int:
+    """Query heads a decode block takes: the largest divisor of the group
+    size g up to ``DECODE_MAX_G`` (a block keeps each head's q and output
+    in registers); the g heads of a kv head are g / that blocks."""
+    return max(d for d in range(1, min(g, DECODE_MAX_G) + 1) if g % d == 0)
+
+
+def decode_split(pairs: int, n_keys: int, sms: int) -> int:
+    """The decode kernel's number of splits of ``n_keys`` keys for
+    ``pairs`` (batch, kv head, head chunk) pairs on ``sms`` SMs: at most
+    one block an SM (pairs × nsplit ≤ sms; more pairs than SMs take one
+    split and ⌈pairs / (``DECODE_BLOCKS_PER_SM`` · sms)⌉ waves), at most
+    one split a ``DECODE_TILE``-key tile and ``DECODE_MAX_SPLIT`` (a pair's
+    splits are one cluster). One block an SM was the fastest shape
+    ``decode_probe`` found at gemma3's decode on an H100 (0.0298 ms at 2
+    splits, 0.0329 at 4). Split s of n takes the tiles
+    [s·tiles // n, (s + 1)·tiles // n)."""
+    tiles = -(-n_keys // DECODE_TILE)
+    return max(1, min(sms // pairs, tiles, DECODE_MAX_SPLIT))
 
 
 @functools.lru_cache(maxsize=None)
@@ -150,9 +227,9 @@ def _split(rows: int, bhkv: int, skv: int, tile: int, sms: int) -> int:
 
 
 def plan(q: Tensor, k: Tensor, v: Tensor, scale: float = 1.0) -> str:
-    """Check that one of the two kernels takes q, k and v, and name it
-    for this softmax scale (``kernel_for``); raise ``ValueError`` for a
-    call neither takes."""
+    """Check that one of the kernels takes q, k and v, and name it for
+    this softmax scale (``kernel_for``); raise ``ValueError`` for a call
+    none takes."""
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"q, k, v must share one dtype of float32/bfloat16, "
                          f"got {q.dtype}, {k.dtype}, {v.dtype}")
@@ -168,16 +245,17 @@ def plan(q: Tensor, k: Tensor, v: Tensor, scale: float = 1.0) -> str:
     dev = q.device
     if k.device != dev or v.device != dev:
         raise ValueError("q, k and v must share one device")
-    if any(t.stride(3) != 1 for t in (q, k, v)) and hd > 1:
+    qs, ks, vs = q.stride(), k.stride(), v.stride()
+    if (qs[3] != 1 or ks[3] != 1 or vs[3] != 1) and hd > 1:
         raise ValueError("q, k and v need a unit stride on the head dim")
     if q.dtype == torch.bfloat16:
         if hd not in _BF16_HD:
             raise ValueError(f"the bf16 kernel takes head dims {_BF16_HD}, "
                              f"got {hd}")
         # 16-byte rows of k and v (cp.async), 4-byte pairs of q
-        if any(t.data_ptr() % 16 or any(t.stride(i) % 8 for i in range(3))
-               for t in (k, v)) or q.data_ptr() % 4 \
-                or any(q.stride(i) % 2 for i in range(3)):
+        if k.data_ptr() % 16 or v.data_ptr() % 16 \
+                or any(st % 8 for st in ks[:3] + vs[:3]) \
+                or q.data_ptr() % 4 or any(st % 2 for st in qs[:3]):
             raise ValueError("bf16 k and v need 16-byte aligned rows, q "
                              "4-byte aligned pairs")
     elif hd > 128:
@@ -185,8 +263,11 @@ def plan(q: Tensor, k: Tensor, v: Tensor, scale: float = 1.0) -> str:
     if b * hkv > 65535 or b * sq * hq >= 2 ** 31 or skv >= 2 ** 31:
         raise ValueError(f"shape too large for the kernel's grid: "
                          f"{tuple(q.shape)}, {tuple(k.shape)}")
-    return kernel_for(q.dtype, hd, sq, all(_tma_ok(t) for t in (q, k, v)),
-                      scale)
+    # only the wgmma kernel asks for TMA's alignment
+    aligned = (q.dtype == torch.bfloat16 and hd in WGMMA_HD
+               and sq >= WGMMA_MIN_ROWS
+               and all(_tma_ok(t) for t in (q, k, v)))
+    return kernel_for(q.dtype, hd, sq, aligned, scale)
 
 
 @torch.library.custom_op("repro_torch::flash_attention", mutates_args=(),
@@ -197,42 +278,90 @@ def flash_attention_cuda(q: Tensor, k: Tensor, v: Tensor, causal: bool,
     f32), each with a unit stride on hd (the other strides are free: a
     view of a KV cache is read in place) → o (b, sq, hq, hd) contiguous.
     Query i sits at position ``q_offset + i``, key j at position j."""
-    global launches
     kernel = plan(q, k, v, scale)
     b, sq, hq, hd = q.shape
-    skv, hkv = k.shape[1], k.shape[2]
-    dev = q.device
-    o = torch.empty((b, sq, hq, hd), dtype=q.dtype, device=dev)
+    skv = k.shape[1]
+    o = torch.empty((b, sq, hq, hd), dtype=q.dtype, device=q.device)
     if b == 0 or sq == 0:
         return o
     if skv == 0:
         raise ValueError("no keys to attend to (skv = 0)")
     _check_rows_have_keys(sq, skv, causal, window, q_offset)
     if kernel == "wgmma":
-        geo = (ctypes.c_ulonglong * 28)(
-            *(x for t in (q, k, v, o) for x in tma_geometry(t)))
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = _lib_wgmma(hd)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                               o.data_ptr(), geo, b, sq, skv, hq, hkv,
-                               int(causal), int(window), int(q_offset),
-                               float(scale), stream)
-        if err != 0:
-            raise RuntimeError(f"flash_attention (wgmma) launch failed: "
-                               f"error {err}")
-        launches += 1
-        launches_by_kernel["wgmma" if hd == 128 else "wgmma256"] += 1
-        return o
+        _launch_wgmma(q, k, v, o, causal, window, q_offset, scale)
+    elif kernel == "decode":
+        _launch_decode(q, k, v, o, causal, window, q_offset, scale)
+    else:
+        _launch_mma(q, k, v, o, causal, window, q_offset, scale)
+    return o
+
+
+def _launch_wgmma(q, k, v, o, causal, window, q_offset, scale):
+    global launches
+    b, sq, hq, hd = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    geo = (ctypes.c_ulonglong * 28)(
+        *(x for t in (q, k, v, o) for x in tma_geometry(t)))
+    dev = q.device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _lib_wgmma(hd)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                             o.data_ptr(), geo, b, sq, skv, hq, hkv,
+                             int(causal), int(window), int(q_offset),
+                             float(scale), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention (wgmma) launch failed: "
+                           f"error {err}")
+    launches += 1
+    launches_by_kernel["wgmma" if hd == 128 else "wgmma256"] += 1
+
+
+def _device_index(dev) -> int:
+    return dev.index if dev.index is not None else torch.cuda.current_device()
+
+
+def _launch_decode(q, k, v, o, causal, window, q_offset, scale):
+    """The decode kernel (bf16, hd 256, one query row): one launch, the
+    splits merged inside it (no scratch)."""
+    global launches
+    b, _, hq, _ = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    g_block = decode_heads(g)
+    pairs = b * hkv * (g // g_block)
+    lo, hi = decode_keys(skv, causal, window, q_offset)
+    dev = q.device
+    nsplit = decode_split(pairs, hi - lo, _sm_count(_device_index(dev)))
+    with torch.cuda.device(dev):
+        err = _lib_decode()[0](
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, hkv,
+            g, g_block, q.stride(0), q.stride(2), k.stride(0), k.stride(1),
+            k.stride(2), v.stride(0), v.stride(1), v.stride(2), o.stride(0),
+            o.stride(2), lo, hi, nsplit, float(scale),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention (decode) launch failed: "
+                           f"cudaError {err}")
+    launches += 1
+    launches_by_kernel["decode256"] += 1
+
+
+def _launch_mma(q, k, v, o, causal, window, q_offset, scale):
+    """The mma.sync kernel on any call ``plan`` accepts (the dispatch rule
+    sends it what the other kernels do not take)."""
+    global launches
+    b, sq, hq, hd = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    dev = q.device
     rows = sq * (hq // hkv)
     nsplit = _split(rows, b * hkv, skv, _tile(q.dtype, hd),
-                    _sm_count(dev.index if dev.index is not None
-                              else torch.cuda.current_device()))
+                    _sm_count(_device_index(dev)))
     if nsplit > 1:
-        part_o = torch.empty((nsplit, b * hkv, rows, hd), dtype=torch.float32,
-                             device=dev)
-        part_m = torch.empty((nsplit, b * hkv, rows), dtype=torch.float32,
-                             device=dev)
-        part_l = torch.empty_like(part_m)
+        part = torch.empty((nsplit * b * hkv * rows * (hd + 2),),
+                           dtype=torch.float32, device=dev)
+        part_o, part_m, part_l = part.split(
+            (nsplit * b * hkv * rows * hd, nsplit * b * hkv * rows,
+             nsplit * b * hkv * rows))
         parts = (part_o.data_ptr(), part_m.data_ptr(), part_l.data_ptr())
     else:
         parts = (None, None, None)
@@ -248,4 +377,3 @@ def flash_attention_cuda(q: Tensor, k: Tensor, v: Tensor, causal: bool,
                            f"cudaError {err}")
     launches += 1
     launches_by_kernel["mma"] += 1
-    return o

@@ -69,7 +69,7 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True).stdout
         .strip(), flush=True)
     shipped = k5._lib_wgmma
-    argtypes = shipped().argtypes          # builds the shipped library
+    argtypes = shipped(128).argtypes       # builds the shipped library
     with ThreadPoolExecutor(len(DEPTHS)) as ex:
         built = dict(zip(DEPTHS, ex.map(lambda d: _variant(*d, argtypes),
                                         DEPTHS)))
@@ -77,7 +77,7 @@ def main():
         print(f"K {kd} / V {vd}:", *report, sep="\n  ", flush=True)
 
     def run_with(depth, q, k, v):
-        k5._lib_wgmma = lambda: built[depth][0]
+        k5._lib_wgmma = lambda hd: built[depth][0]
         try:
             return flash_attention(q, k, v)
         finally:

@@ -223,9 +223,13 @@ def test_forward_only_route_is_chosen_on_cuda(cuda, monkeypatch):
     ("bfloat16", 256, 64, True, "wgmma"),
     ("bfloat16", 256, 63, True, "mma"),       # under WGMMA_MIN_ROWS
     ("bfloat16", 256, 1024, False, "mma"),    # not TMA-aligned
-    ("bfloat16", 256, 1, True, "mma"),        # gemma3's ring decode
+    ("bfloat16", 256, 1, True, "decode"),     # gemma3's decode: the
+    ("bfloat16", 256, 1, False, "decode"),    # decode kernel, any alignment
+    ("bfloat16", 256, 2, True, "mma"),        # a short hd-256 prefill
     ("float32", 128, 1024, True, "mma"),      # f32
     ("float32", 16, 64, True, "mma"),         # lm-tiny
+    ("float32", 64, 1, True, "mma"),          # f32 decode (lm-100m)
+    ("float32", 16, 1, True, "mma"),          # lm-tiny's decode
 ])
 def test_dispatch_rule(dtype, hd, sq, aligned, kernel):
     from repro_torch.kernels.flash_attn.flash_attn import kernel_for
@@ -235,10 +239,12 @@ def test_dispatch_rule(dtype, hd, sq, aligned, kernel):
 @pytest.mark.parametrize("scale", [0.0, -0.1, float("nan")])
 def test_dispatch_rule_sends_other_scales_to_mma(scale):
     """The wgmma kernel takes its row max on the unscaled scores, so only
-    a positive softmax scale goes to it; the mma kernel takes any other."""
+    a positive softmax scale goes to it; the mma kernel takes any other.
+    The decode kernel takes its max on the scaled scores: any scale."""
     from repro_torch.kernels.flash_attn.flash_attn import kernel_for, plan
     assert kernel_for(torch.bfloat16, 128, 1024, True, 0.05) == "wgmma"
     assert kernel_for(torch.bfloat16, 128, 1024, True, scale) == "mma"
+    assert kernel_for(torch.bfloat16, 256, 1, True, scale) == "decode"
     q = torch.zeros(2, 128, 6, 128, dtype=torch.bfloat16)
     k = torch.zeros(2, 128, 2, 128, dtype=torch.bfloat16)
     assert plan(q, k, k) == "wgmma"
@@ -270,12 +276,18 @@ def test_plan_names_the_kernel_from_the_tensors():
     q256 = torch.zeros(2, 128, 16, 256, dtype=torch.bfloat16)
     ring = torch.zeros(2, 1024, 8, 256, dtype=torch.bfloat16)
     assert plan(q256, ring[:, :128], ring[:, :128]) == "wgmma"
-    assert plan(q256[:, :1], ring, ring) == "mma"
+    assert plan(q256[:, :1], ring, ring) == "decode"
     assert plan(_view_at(q256.shape, 2), ring[:, :128], ring[:, :128]) \
         == "mma"
+    # the decode kernel over a prefix view, and for a q 4-byte aligned
+    # only (it reads q by 4-byte words); hd 128's decode stays on mma
+    assert plan(q256[:, :1], ring[:, :701], ring[:, :701]) == "decode"
+    assert plan(_view_at((2, 1, 16, 256), 2), ring, ring) == "decode"
+    assert plan(q[:, :1], k, v) == "mma"
 
 
 @pytest.mark.parametrize("case", ["bf16 hd 80", "f32 hd 256",
+                                  "f32 hd 256 decode",
                                   "k rows misaligned", "hd stride",
                                   "k and v differ", "mixed dtypes",
                                   "not grouped"])
@@ -290,6 +302,9 @@ def test_plan_raises_for_a_call_neither_kernel_takes(case):
         v = k
     elif case == "f32 hd 256":
         q = torch.zeros(2, 128, 4, 256)
+        k = v = torch.zeros(2, 128, 2, 256)
+    elif case == "f32 hd 256 decode":
+        q = torch.zeros(2, 1, 4, 256)
         k = v = torch.zeros(2, 128, 2, 256)
     elif case == "k rows misaligned":
         k = v = _view_at(k.shape, 4)
@@ -422,7 +437,8 @@ def test_wgmma_two_launches_give_the_same_bits(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", ["bf16 hd 80", "f32 hd 256"])
+@pytest.mark.parametrize("case", ["bf16 hd 80", "f32 hd 256",
+                                  "f32 hd 256 decode"])
 def test_cuda_call_neither_kernel_takes_raises(cuda, case):
     """A CUDA call that neither kernel takes raises: no fallback to the
     other kernel or to the plain version."""
@@ -431,7 +447,8 @@ def test_cuda_call_neither_kernel_takes_raises(cuda, case):
         q = torch.zeros(2, 128, 4, 80, dtype=torch.bfloat16, device=cuda)
         k = torch.zeros(2, 128, 2, 80, dtype=torch.bfloat16, device=cuda)
     else:
-        q = torch.zeros(2, 128, 4, 256, device=cuda)
+        q = torch.zeros(2, 128 if case == "f32 hd 256" else 1, 4, 256,
+                        device=cuda)
         k = torch.zeros(2, 128, 2, 256, device=cuda)
     before = k5.launches
     with pytest.raises(ValueError):
@@ -500,8 +517,10 @@ def test_hd256_kernel_matches_plain_on_gpu(cuda, b, sq, skv, window,
     from repro_torch.kernels.flash_attn import flash_attn as k5
     q, k, v = _hd256_inputs(cuda, b, sq, skv, slots, q_scale)
     kw = dict(causal=causal, window=window, q_offset=q_offset)
-    kernel = k5.kernel_for(q.dtype, 256, sq, True)     # the counter's key
-    _hd256_check(q, k, v, "wgmma256" if kernel == "wgmma" else kernel, **kw)
+    kernel = k5.kernel_for(q.dtype, 256, sq, True)
+    counter = {"wgmma": "wgmma256", "decode": "decode256"}.get(kernel,
+                                                              kernel)
+    _hd256_check(q, k, v, counter, **kw)
     if sq > 1:
         _hd256_check(_off_tma(q), k, v, "mma", **kw)
 
@@ -551,3 +570,203 @@ def test_wgmma256_two_launches_give_the_same_bits(cuda):
     first = flash_attention(q, k, v, window=1024)
     for _ in range(2):
         assert torch.equal(flash_attention(q, k, v, window=1024), first)
+
+
+# --- the hd-256 decode kernel (flash_attn_decode.cu) -------------------------
+# The split rule and the key walk are plain Python: they run here.
+H100_SMS = 132
+
+
+def _decode_tiles(split, nsplit, n_keys, tile=32):
+    """The tiles [t0, t1) of split ``split`` of ``nsplit`` over ``n_keys``
+    keys, as flash_attn_decode.cu cuts them (``tile``: its kTile)."""
+    tiles = -(-n_keys // tile)
+    return split * tiles // nsplit, (split + 1) * tiles // nsplit
+
+
+def _decode_walk(lo, hi, nsplit, warps=8, keys=4):
+    """The keys the decode kernel visits, as its index math walks them
+    (``warps`` and ``keys``: flash_attn_decode.cu's kWarps, kKeys): split
+    s takes the tiles ``_decode_tiles`` gives it (clipped to hi); warp w
+    of a split takes chunks of ``keys`` keys at w·keys + c·warps·keys."""
+    from repro_torch.kernels.flash_attn.flash_attn import DECODE_TILE
+    tile = warps * keys
+    assert tile == DECODE_TILE
+    seen = []
+    for s in range(nsplit):
+        t0, t1 = _decode_tiles(s, nsplit, hi - lo)
+        k0, k1 = lo + t0 * tile, min(hi, lo + t1 * tile)
+        assert t1 > t0 and k0 < k1, (s, t0, t1)  # at least one tile, a key
+        for w in range(warps):
+            first = k0 + w * keys
+            nchunks = -(-(k1 - first) // tile) if first < k1 else 0
+            for c in range(nchunks):
+                key0 = first + c * tile
+                assert key0 < k1                 # a chunk's first key is real
+                seen += [key0 + i for i in range(keys) if key0 + i < k1]
+    return seen
+
+
+@pytest.mark.parametrize("b,n_keys", [
+    (8, 1024),                                  # cell F: a full ring
+    (8, 1), (8, 7), (8, 700),                   # rings before the wrap
+    (8, 1025), (8, 1060), (8, 1087),            # the global caches
+    (1, 1024), (1, 1087), (1, 1), (1, 17),      # one sequence
+    (2, 4160), (64, 1024), (128, 1024),         # more pairs than slots
+])
+def test_decode_split_covers_every_key_once(b, n_keys):
+    """At gemma3's geometry (8 kv heads, g 2: one head chunk) on 132 SMs:
+    every split covers at least one 32-key tile, split sizes differ by one
+    tile at most, the kernel's walk visits each key of the range once, and
+    the grid is at most one block an SM, as full as whole splits make it
+    (one split when the pairs alone outnumber the SMs)."""
+    from repro_torch.kernels.flash_attn import flash_attn as k5
+    pairs = b * 8 * (2 // k5.decode_heads(2))
+    nsplit = k5.decode_split(pairs, n_keys, H100_SMS)
+    tiles = -(-n_keys // k5.DECODE_TILE)
+    assert 1 <= nsplit <= min(tiles, k5.DECODE_MAX_SPLIT)
+    sizes = [t1 - t0 for t0, t1 in (_decode_tiles(s, nsplit, n_keys)
+                                    for s in range(nsplit))]
+    assert min(sizes) >= 1 and max(sizes) - min(sizes) <= 1
+    for lo in (0, 300):                         # a window's cut start
+        assert sorted(_decode_walk(lo, lo + n_keys, nsplit)) == \
+            list(range(lo, lo + n_keys))
+    if pairs <= H100_SMS:
+        assert pairs * nsplit <= H100_SMS       # one block an SM at most
+        if nsplit < min(tiles, k5.DECODE_MAX_SPLIT):
+            assert pairs * (nsplit + 1) > H100_SMS  # one more: past it
+    else:
+        assert nsplit == 1
+
+
+def test_decode_split_at_cell_f():
+    """Cell F's decode (b 8, 8 kv heads, g 2) over a full ring and the
+    longest global prefix: 64 pairs x 2 splits = 128 blocks, one on each
+    of 128 of an H100's 132 SMs; one sequence takes the most splits a
+    cluster holds, 8."""
+    from repro_torch.kernels.flash_attn import flash_attn as k5
+    assert k5.decode_split(64, 1024, H100_SMS) == 2
+    assert k5.decode_split(64, 1087, H100_SMS) == 2
+    assert k5.decode_split(8, 1024, H100_SMS) == k5.DECODE_MAX_SPLIT == 8
+    assert k5.decode_split(32, 1024, H100_SMS) == 4
+    assert k5.decode_split(88, 1024, H100_SMS) == 1
+    assert k5.decode_split(8, 40, H100_SMS) == 2     # two tiles: 2 splits
+    assert [_decode_tiles(s, 2, 1087) for s in (0, 1)] == [(0, 17),
+                                                           (17, 34)]
+
+
+@pytest.mark.parametrize("g,g_block", [(1, 1), (2, 2), (3, 3), (4, 4),
+                                       (6, 3), (7, 1), (8, 4), (16, 4)])
+def test_decode_heads(g, g_block):
+    from repro_torch.kernels.flash_attn.flash_attn import decode_heads
+    assert decode_heads(g) == g_block
+
+
+@pytest.mark.parametrize("skv,causal,window,q_offset,want", [
+    (1024, False, 0, 0, (0, 1024)),           # a full ring after the wrap
+    (701, True, 1024, 700, (0, 701)),         # a ring before the wrap
+    (1087, True, 0, 1086, (0, 1087)),         # a global cache's prefix
+    (1024, True, 100, 1023, (924, 1024)),     # the window cuts
+    (1024, True, 0, 500, (0, 501)),           # causal, q_offset < skv − 1
+    (1024, False, 100, 500, (401, 1024)),     # a window, not causal
+])
+def test_decode_keys(skv, causal, window, q_offset, want):
+    from repro_torch.kernels.flash_attn.flash_attn import decode_keys
+    assert decode_keys(skv, causal, window, q_offset) == want
+
+
+DECODE_PARITY = [
+    # name, cache slots, skv (the view), causal, window, q_offset
+    ("full ring, not causal", 64, 64, False, 0, 0),
+    ("ring before the wrap", 64, 41, True, 64, 40),
+    ("window cuts", 96, 96, True, 32, 95),
+    ("prefix of a longer cache", 128, 100, True, 0, 99),
+]
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 2e-4), ("bfloat16", 3e-2)])
+@pytest.mark.parametrize("name,slots,skv,causal,window,q_offset",
+                         DECODE_PARITY)
+def test_hd256_decode_matches_reference(jax_k5, name, slots, skv, causal,
+                                        window, q_offset, dtype, tol):
+    """gemma3's decode geometry, reduced (b 2, hkv 2, g 2, hd 256): the
+    port's op against the JAX op (Pallas in interpret mode, 32-key tiles)
+    on the same inputs, k and v a prefix view of a ``slots``-slot cache;
+    and attention over the keys [lo, hi) alone (``decode_keys``: what the
+    decode kernel reads), unmasked, equal to the masked call."""
+    from repro_torch.kernels.flash_attn.flash_attn import decode_keys
+    jnp, jax_op, _ = jax_k5
+    q, k, v = _qkv(2, 1, slots, 4, 2, 256, seed=slots + skv)
+    k, v = k[:, :skv], v[:, :skv]
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    want = np.asarray(jax_op(*(jnp.asarray(t).astype(jdt) for t in (q, k, v)),
+                             block_q=8, block_k=32, **kw), np.float32)
+    qt, kt, vt = (torch.from_numpy(np.ascontiguousarray(t)).to(tdt)
+                  for t in (q, k, v))
+    got = flash_attention(qt, kt, vt, **kw)
+    assert got.dtype == tdt and got.shape == (2, 1, 4, 256)
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=tol, atol=tol)
+    lo, hi = decode_keys(skv, causal, window, q_offset)
+    cut = flash_attention(qt.float(), kt[:, lo:hi].float(),
+                          vt[:, lo:hi].float(), causal=False)
+    torch.testing.assert_close(
+        cut, flash_attention(qt.float(), kt.float(), vt.float(), **kw),
+        rtol=1e-6, atol=1e-6)
+
+
+DECODE_GPU_CASES = [
+    # b, skv, hq, hkv, window, q_offset (None: skv − 1), causal, cache
+    # slots (0: none), q scale, softmax scale (None: hd^-0.5)
+    *[(3, n, 2 * h, 2, 0, None, True, n + 5, 1.0, None)
+      for n in (1, 7, 63, 64, 65, 1024, 1087, 4160) for h in (1, 2, 3, 8)],
+    (8, 1024, 16, 8, 0, 0, False, 0, 1.0, None),     # cell F's full ring
+    (8, 1024, 16, 8, 0, 0, False, 0, 6.0, None),     # peaked
+    (8, 1087, 16, 8, 0, None, True, 1088, 1.0, None),  # the global prefix
+    (8, 701, 16, 8, 1024, 700, True, 1024, 1.0, None),  # before the wrap
+    (2, 1024, 16, 8, 100, 1023, True, 0, 1.0, None),  # the window cuts
+    (2, 1024, 16, 8, 0, 500, True, 0, 1.0, None),   # causal, q_offset < skv-1
+    (2, 1024, 16, 8, 100, 500, False, 0, 1.0, None),  # a window, not causal
+    (2, 1024, 16, 8, 0, 0, False, 0, 1.0, 0.2),      # other softmax scales
+    (2, 1024, 16, 8, 0, 0, False, 0, 1.0, -0.1),
+    (2, 1087, 16, 8, 0, None, True, 1088, 6.0, 0.2),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "b,skv,hq,hkv,window,q_offset,causal,slots,q_scale,scale",
+    DECODE_GPU_CASES)
+def test_decode256_kernel_matches_plain_on_gpu(cuda, b, skv, hq, hkv,
+                                               window, q_offset, causal,
+                                               slots, q_scale, scale):
+    """The decode kernel (bf16, hd 256, one query row) against the plain
+    version in f32 on the card: skv from 1 to 4160, g 1, 2, 3, 8 (two head
+    chunks), prefix views of a cache, peaked q, softmax scales 0.2 and
+    −0.1, causal edges before the last key, windows that cut; within the
+    unchanged tolerances, the ``decode256`` count alone moving."""
+    q, k, v = _hd256_inputs(cuda, b, 1, skv, slots, q_scale, hq, hkv)
+    _hd256_check(q, k, v, "decode256", causal=causal, window=window,
+                 q_offset=skv - 1 if q_offset is None else q_offset,
+                 scale=scale)
+
+
+@pytest.mark.gpu
+def test_decode256_two_launches_give_the_same_bits(cuda):
+    """The splits merge in a fixed order: cell F's decode on the same
+    inputs gives the same bits, launch after launch."""
+    q, k, v = _hd256_inputs(cuda, 8, 1, 1024, 0, 6.0)
+    first = flash_attention(q, k, v, causal=False)
+    for _ in range(3):
+        assert torch.equal(flash_attention(q, k, v, causal=False), first)
+
+
+@pytest.mark.gpu
+def test_decode256_occupancy_is_the_split_rule_s(cuda):
+    """The split rule counts ``DECODE_BLOCKS_PER_SM`` resident blocks an
+    SM: the occupancy calculator agrees for every block width, and the
+    card holds cell F's 64 clusters of 2 blocks at once."""
+    from repro_torch.kernels.flash_attn import flash_attn as k5
+    occ = [k5.decode_occupancy(g, 2) for g in range(1, k5.DECODE_MAX_G + 1)]
+    assert [n for n, _ in occ] == [k5.DECODE_BLOCKS_PER_SM] * 4
+    assert min(c for _, c in occ) >= 64, occ
