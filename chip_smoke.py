@@ -12,7 +12,8 @@ Phases, in order; each raises on failure, so the process exits non-zero:
               name its wrapper loads it by (the wrapper module's ``LIB*``),
               registers and spills logged; the wgmma K5's ptxas report
               shows no spills and its SASS holds HGMMA, UTMALDG and UTMASTG
-              (``cuobjdump -sass``). At the end the script checks that
+              (``cuobjdump -sass``); the f32 K5's report shows no spills
+              (``check_f32_build``). At the end the script checks that
               every library the run loaded is one phase 2 built;
 3. K4       — ``ce_score_block`` against its plain version on the card:
               the slice's (12, 128, 128256) bf16 chunk view, a ragged
@@ -114,8 +115,12 @@ Phases, in order; each raises on failure, so the process exits non-zero:
               the wgmma kernel for bf16 hd-128 prefill shapes (cell C's,
               also over the cache's prefix view, cells A/E's (12, 1024),
               cell D's (8, 1024), ragged, a ragged q_offset over a cache,
-              windows, one at softmax scale 0.2), the mma.sync one for
-              decode, f32 and a bf16 hd-64 prefill; each case's output is
+              windows, one at softmax scale 0.2), the f32 kernel for f32
+              prefills (cell I's pool (12, 1024, 10/5, 64), also peaked;
+              an lm-tiny (2, 64, 4/2, 16); a ragged (2, 77) at g = 3; hd
+              128; a window with q_offset over a longer cache view at scale
+              0.2; hd 32 at scale 0.3), the mma.sync one for decode (bf16
+              and f32) and a bf16 hd-64 prefill; each case's output is
               finite and a second launch gives the same bits;
 14. K1       — ``ce_score`` against its plain version on the card: cell
               D's (8·1024, 128256) logits in bf16 and f32, a ragged T over
@@ -123,7 +128,8 @@ Phases, in order; each raises on failure, so the process exits non-zero:
 15. serve lm-tiny — ``serve_step`` on the card (K5) against the CPU (plain)
               from the same params, prefill and teacher-forced decode
               logits to 1e-3, and ``repro_torch.serve``'s greedy tokens
-              equal on both;
+              equal on both; K5's launches: the prefill's on the f32
+              kernel, the decodes' on mma.sync;
 16. cell C   — ``repro_torch.serve("llama3.2-3b", batch=8, prompt_len=4096,
               gen=64)`` at full width and depth (cuts printed); counts
               zeroed just before and read just after (K5: 28 a step, 1792:
@@ -156,10 +162,12 @@ Phases, in order; each raises on failure, so the process exits non-zero:
 18. K5/K1 timing — K5 per launch at cell C's prefill, cell D's score
               (8, 1024) and cells A/E's pool (12, 1024) (the wgmma kernel,
               TFLOP/s, and the mma.sync kernel on the same values) and cell
-              C's decode (mma.sync), and the f32 mma.sync path at cell I's
-              pool scoring (12, 1024, 10/5 heads of 64, causal; by CUDA
-              events, its bound operations at the f32 rate, SDPA's f32
-              backends), K1 at cell D's, each beside its plain
+              C's decode (mma.sync), and the f32 kernel at cell I's pool
+              scoring (12, 1024, 10/5 heads of 64, causal; by CUDA events,
+              TFLOP/s and the share of its bound, operations at the f32
+              rate; the mma.sync path's plain FMA on an off-16-byte copy of
+              q and SDPA's f32 backends in turns), K1 at cell D's, each
+              beside its plain
               version, its bound and (K5) ``scaled_dot_product_attention``
               on the same inputs as a yardstick that the port never calls,
               also under each of its fused backends that runs (flash,
@@ -258,7 +266,8 @@ Phases, in order; each raises on failure, so the process exits non-zero:
               and decode, the global layers K5) and 128 (twice the rings:
               their prefill plain, their decode through K5 over the whole
               wrapped ring): tokens equal, logits to 1e-3, K5's launches as
-              stated;
+              stated, exactly split: the forward's and the prefills' on the
+              f32 kernel, the decodes' on mma.sync;
 25. gemma3 serve — ``repro_torch.serve("gemma3-12b", batch=8,
               prompt_len=1024, gen=64)`` at full width and depth (48 layers,
               cuts printed); counts zeroed just before and read just after
@@ -284,10 +293,12 @@ Phases, in order; each raises on failure, so the process exits non-zero:
               step ``PROFILED`` under ``torch.profiler``;
 28. dense configs — lm-100m trained under ``prod`` at full size with the
               pool scored in f32 (K4 on f32 logits, K5's f32 kernel: 8 and
-              12 a step); internlm2-20b scored at full width and depth and
-              yi-34b at full width and the depth that counting says leaves
-              6 GB of the card free (the cut printed), each as phase 17
-              (K1 once, K5 once a layer, wgmma: group sizes 6 and 7).
+              12 a step; every step's wall time, steps 1-3 without the
+              first step's warm-up); internlm2-20b scored at full width
+              and depth and yi-34b at full width and the depth that
+              counting says leaves 6 GB of the card free (the cut
+              printed), each as phase 17 (K1 once, K5 once a layer,
+              wgmma: group sizes 6 and 7).
 
 Every phase's seconds are printed (``[phase]``). Phase 6 also counts K5,
 which runs cell A's forward-only pool scoring (28 launches a step).
@@ -335,8 +346,9 @@ K5_TOL = {torch.float32: 2e-4,    # rtol = atol, tests/test_kernels.py's
 # a long causal row (rms about sqrt(e / n)), so they alone would pass a
 # kernel wrong in late kv tiles or in the decode's split partials. bf16:
 # the output's rounding is at most 2^-8 of an element, plus P's rounding;
-# f32: summation order and __expf. Each is 2.4 (bf16) and 5.7 (f32) times
-# the worst over this phase's cases on an H100 80GB HBM3 at 700 W.
+# f32: summation order and the exponent's rounding. Each is 2.4 (bf16) and
+# 5.7 (f32) times the worst over this phase's cases on an H100 80GB HBM3 at
+# 700 W before the f32 kernel; its cases reach 3.4e-6 (2.9 times under).
 K5_ROW_REL = {torch.float32: 1e-5, torch.bfloat16: 1.5e-2}
 Q_PEAK = 6.0       # q scale of the peaked cases: a few keys carry a row
 K1_TOL = dict(rtol=1e-4, atol=1e-4)  # per-token f32 stats: __expf and the
@@ -412,6 +424,21 @@ def check_wgmma_build(libs):
     assert all(counts.values()), counts
     log(f"[build] {k5.LIB_WGMMA} SASS: {counts}; {regs}; {spills}")
     return dict(sass=counts, ptxas=regs + spills)
+
+
+def check_f32_build():
+    """The f32 K5 library: every instance of its kernel in ptxas's report,
+    none spilling; returns {kernel: "registers; spills"}."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attn import flash_attn as k5
+    report = _ptxas_by_kernel(
+        (build.BUILD_DIR / f"{k5.LIB_F32}.log").read_text())
+    found = {fn: r for fn, r in report.items() if "flash_fwd_f32" in fn}
+    assert len(found) == len(k5.F32_HD), report
+    assert all("0 bytes spill stores, 0 bytes spill loads" in r
+               for r in found.values()), found
+    log(f"[build] {k5.LIB_F32} ptxas: {found}")
+    return found
 
 
 def _k4_inputs(B, T, V, dtype, gen, dead=(), pad_frac=0.0):
@@ -1516,9 +1543,9 @@ def _k5_zero(k5):
 def _k5_counts(**moved):
     """K5's ``launches_by_kernel`` with ``moved``'s counts and the other
     kernels' 0: ``wgmma`` (hd 128), ``wgmma256`` (hd 256), ``decode256``
-    (hd 256, one query row), ``mma``."""
-    return dict(dict.fromkeys(("wgmma", "wgmma256", "decode256", "mma"), 0),
-                **moved)
+    (hd 256, one query row), ``f32`` (f32 prefill and scoring), ``mma``."""
+    return dict(dict.fromkeys(("wgmma", "wgmma256", "decode256", "f32",
+                               "mma"), 0), **moved)
 
 
 def _k5_inputs(b, sq, skv, hq, hkv, hd, dtype, gen, slots=0, q_scale=1.0):
@@ -1617,8 +1644,22 @@ def check_k5(gen):
          256, 512, 1.0, 0.2),
         ("ragged (2,77) 24/8x64 bf16 (the mma kernel's bf16 prefill)",
          "mma", (2, 77, 77, 24, 8, 64), torch.bfloat16, 0, 0, 0),
-        ("f32 (2,300) 24/8x128", "mma", (2, 300, 300, 24, 8, 128),
+        # f32 prefill and scoring: the f32 kernel
+        ("f32 (2,300) 24/8x128", "f32", (2, 300, 300, 24, 8, 128),
          torch.float32, 0, 0, 0),
+        ("f32 cell I pool (12,1024) 10/5x64", "f32",
+         (12, 1024, 1024, 10, 5, 64), torch.float32, 0, 0, 0),
+        (f"f32 cell I pool (12,1024) 10/5x64, q x{Q_PEAK:g} (peaked)", "f32",
+         (12, 1024, 1024, 10, 5, 64), torch.float32, 0, 0, 0, Q_PEAK),
+        ("f32 lm-tiny prefill (2,64) 4/2x16", "f32", (2, 64, 64, 4, 2, 16),
+         torch.float32, 0, 0, 0),
+        ("f32 ragged (2,77) 24/8x64 (g = 3)", "f32", (2, 77, 77, 24, 8, 64),
+         torch.float32, 0, 0, 0),
+        ("f32 window 64 (2,200) at offset 256 over a 512-slot cache, scale "
+         "0.2", "f32", (2, 200, 456, 24, 8, 64), torch.float32, 64, 256, 512,
+         1.0, 0.2),
+        (f"f32 window 40 (2,130) 4/2x32, q x{Q_PEAK:g}, scale 0.3", "f32",
+         (2, 130, 130, 4, 2, 32), torch.float32, 40, 0, 0, Q_PEAK, 0.3),
         ("f32 lm-tiny decode (2,1) 4/2x16 at 40", "mma", (2, 1, 41, 4, 2, 16),
          torch.float32, 0, 40, 64),
     ]
@@ -1829,22 +1870,26 @@ def check_serve_lm_tiny():
     gpu = LM(cfg, "cuda")
     cpu = interop.params_from_numpy(interop.params_to_numpy(gpu), cfg, "cpu")
     prompts = np.random.default_rng(5).integers(0, cfg.vocab_size, (2, 24))
-    before = k5.launches
+    _k5_zero(k5)
     outs = [repro_torch.serve(cfg, params=lm.state_dict(), prompts=prompts,
                               gen=8, device=dev)
             for lm, dev in ((gpu, "cuda"), (cpu, "cpu"))]
-    launched = k5.launches - before
+    launched = k5.launches
     assert np.array_equal(outs[0]["tokens"], outs[1]["tokens"]), \
         (outs[0]["tokens"], outs[1]["tokens"])
     n_layers = cfg.segments[0].repeats
-    assert launched == n_layers * 8, launched
+    # the 24-token prefill on the f32 kernel, the 7 decode steps on mma
+    by_kernel = dict(k5.launches_by_kernel)
+    assert launched == n_layers * 8 and by_kernel == _k5_counts(
+        f32=n_layers, mma=n_layers * 7), (launched, by_kernel)
     toks = torch.from_numpy(outs[0]["tokens"])
     pg = _teacher_forced(gpu, toks.cuda(), torch.from_numpy(prompts).cuda(),
                          7, True)
     pc = _teacher_forced(cpu, toks, torch.from_numpy(prompts), 7, True)
     err = max(float((a.cpu() - b).abs().max()) for a, b in zip(pg, pc))
     assert err < 1e-3, err
-    log(f"[serve lm-tiny] card (K5, {launched} launches) and CPU (plain): "
+    log(f"[serve lm-tiny] card (K5, {launched} launches: {by_kernel}) and "
+        f"CPU (plain): "
         f"greedy tokens equal {outs[0]['tokens'].tolist()}; prefill and "
         f"decode logits within {err:.2e} (< 1e-3)")
     return err
@@ -2212,26 +2257,30 @@ def _sdpa_backends(q, k, v, causal):
 
 
 def _off_tma(t):
-    """A copy of ``t`` whose base sits 4 bytes off a 16-byte boundary: TMA
-    refuses it, so the dispatch rule sends the call to the mma.sync kernel,
-    which takes it (both kernels timed on the same values)."""
+    """A copy of ``t`` whose base sits two elements (4 bytes in bf16, 8 in
+    f32) off a 16-byte boundary: TMA and the f32 kernel refuse it, so the
+    dispatch rule sends the call to the mma.sync kernel, which takes it
+    (both kernels timed on the same values)."""
     buf = torch.empty(t.numel() + 2, dtype=t.dtype, device=t.device)
     return buf[2:].view(t.shape).copy_(t)
 
 
 def _time_k5_f32(gen):
-    """Phase 18a's f32 row: K5's f32 mma.sync path at cell I's pool
-    scoring (lm-100m: the (12, 1024) pool, 10/5 heads of 64, causal; 12
-    launches a step), by CUDA events (the median of 3 rounds of 20 calls,
-    in turns with SDPA under each backend that takes f32), beside its plain
-    version and its bound (operations at the f32 rate outside the tensor
-    cores: the kernel computes in plain f32 FMA)."""
+    """Phase 18a's f32 row: the f32 kernel at cell I's pool scoring
+    (lm-100m: the (12, 1024) pool, 10/5 heads of 64, causal; 12 launches a
+    step), by CUDA events (the median of 3 rounds of 20 calls, in turns
+    with the mma.sync path's plain FMA on the same values through an
+    off-16-byte copy of q, and SDPA under each backend that takes f32),
+    beside its plain version and its bound (operations at the f32 rate
+    outside the tensor cores: both kernels compute in plain f32 FMA)."""
     from repro_torch.kernels.flash_attn import flash_attn as k5
     from repro_torch.kernels.flash_attn.ops import flash_attention
     b, s, hq, hkv, hd = 12, 1024, 10, 5, 64
     q, k, v = _k5_inputs(b, s, s, hq, hkv, hd, torch.float32, gen)
-    assert k5.plan(q, k, v) == "mma"
-    runs = {"mma": lambda: flash_attention(q, k, v),
+    qm = _off_tma(q)
+    assert k5.plan(q, k, v) == "f32" and k5.plan(qm, k, v) == "mma"
+    runs = {"f32": lambda: flash_attention(q, k, v),
+            "mma": lambda: flash_attention(qm, k, v),
             "sdpa": _sdpa(q, k, v, True),
             **{f"sdpa {n}": f for n, f in
                _sdpa_backends(q, k, v, True).items()}}
@@ -2245,19 +2294,27 @@ def _time_k5_f32(gen):
     bound_ms, by = _bound(n_bytes, n_ops, F32_FLOPS_PER_S)
     by_backend = {key[5:]: t for key, t in med.items()
                   if key.startswith("sdpa ")}
+    ms, mma_ms = med["f32"], med["mma"]
     row = dict(
         shape=f"q ({b},{s},{hq},{hd}), kv ({b},{s},{hkv},{hd}) f32, causal "
               f"(cell I's pool scoring, 12 launches a step)",
-        kernel="mma", ms=med["mma"], rounds_ms=ev,
+        kernel="f32", ms=ms, mma_ms=mma_ms, rounds_ms=ev,
         plain_ms=_time(lambda: _k5_plain(q, k, v), 2),
         library_ms=med["sdpa"], library_ms_by_backend=by_backend,
         bound_ms=bound_ms, bound_by=by, flop=n_ops,
-        share_of_bound=bound_ms / med["mma"],
-        tflops=n_ops / (med["mma"] * 1e-3) / 1e12,
+        share_of_bound=bound_ms / ms, mma_share_of_bound=bound_ms / mma_ms,
+        tflops=n_ops / (ms * 1e-3) / 1e12,
+        mma_tflops=n_ops / (mma_ms * 1e-3) / 1e12,
         sdpa_tflops={n: n_ops / (t * 1e-3) / 1e12
                      for n, t in by_backend.items()},
         timed_by="CUDA events, the median of 3 rounds of 20 calls, in turns")
-    del q, k, v, runs
+    assert ms < mma_ms, (ms, mma_ms)
+    log(f"[timing] K5 f32: the f32 kernel {ms:.4f} ms ({row['tflops']:.1f} "
+        f"TFLOP/s, {row['share_of_bound']:.3f} of the {bound_ms:.4f} ms "
+        f"bound), the mma.sync path on the same values {mma_ms:.4f} ms "
+        f"({row['mma_tflops']:.1f} TFLOP/s, {row['mma_share_of_bound']:.3f})"
+        f"; SDPA by backend {by_backend}")
+    del q, qm, k, v, runs
     torch.cuda.empty_cache()
     return row
 
@@ -3043,7 +3100,7 @@ def check_gemma_reduced():
     with torch.inference_mode():
         lg = gpu({"tokens": toks.cuda()}).cpu()
         lc = cpu({"tokens": toks})
-    assert k5.launches_by_kernel == _k5_counts(mma=n_layers), \
+    assert k5.launches_by_kernel == _k5_counts(f32=n_layers), \
         k5.launches_by_kernel
     res["forward_max_abs_err"] = float((lg - lc).abs().max())
     assert res["forward_max_abs_err"] < 1e-3, res
@@ -3064,13 +3121,16 @@ def check_gemma_reduced():
     del ge, ce
     n_global = sum(seg.repeats * seg.pattern.count(ATTN)
                    for seg in cfg.segments)
-    # (prompt, gen, K5 launches): every layer at every step; the global
-    # layers only (rings out of step); the global layers in the prefill
-    # and every layer in decode (rings of 128 = 2 × 64 stay in step)
-    cases = ((40, 30, n_layers * 30), (100, 8, n_global * 8),
-             (128, 8, n_global + n_layers * 7))
+    # (prompt, gen, K5 launches of the prefill (the f32 kernel) and of the
+    # decode steps (mma)): every layer at every step; the global layers
+    # only (rings out of step); the global layers in the prefill and every
+    # layer in decode (rings of 128 = 2 × 64 stay in step)
+    cases = ((40, 30, n_layers, n_layers * 29),
+             (100, 8, n_global, n_global * 7),
+             (128, 8, n_global, n_layers * 7))
     res["serve"] = []
-    for P, gen, want in cases:
+    for P, gen, pre, dec in cases:
+        want = pre + dec
         prompts = np.random.default_rng(P).integers(0, cfg.vocab_size,
                                                     (2, P))
         _k5_zero(k5)
@@ -3079,8 +3139,8 @@ def check_gemma_reduced():
                 for lm, dev in ((gpu, "cuda"), (cpu, "cpu"))]
         assert np.array_equal(outs[0]["tokens"], outs[1]["tokens"]), \
             (P, outs)
-        assert k5.launches_by_kernel == _k5_counts(mma=want), \
-            (P, k5.launches_by_kernel, want)
+        assert k5.launches_by_kernel == _k5_counts(f32=pre, mma=dec), \
+            (P, k5.launches_by_kernel, pre, dec)
         tk = torch.from_numpy(outs[0]["tokens"])
         pg = _teacher_forced(gpu, tk.cuda(),
                              torch.from_numpy(prompts).cuda(), gen - 1, True)
@@ -3089,8 +3149,8 @@ def check_gemma_reduced():
         err = max(float((a.cpu() - b).abs().max()) for a, b in zip(pg, pc))
         assert err < 1e-3, (P, err)
         res["serve"].append(dict(prompt_len=P, gen=gen, k5_launches=want,
-                                 max_abs_err=err))
-    log(f"[gemma reduced] {cfg.name}: forward (K5, {n_layers} mma launches) "
+                                 k5_f32=pre, k5_mma=dec, max_abs_err=err))
+    log(f"[gemma reduced] {cfg.name}: forward (K5, {n_layers} f32 launches) "
         f"within {res['forward_max_abs_err']:.2e} of the CPU; prod plans "
         f"equal {hg.gids}, losses card/CPU {res['prod_losses']} (to 1e-3); "
         f"serve (prompt, gen, K5 launches, teacher-forced logits' worst "
@@ -3194,6 +3254,25 @@ def _fit_depth(cfg, batch, seq, free_bytes=6e9):
     raise RuntimeError(f"{cfg.name} does not fit one card")
 
 
+def _step_walls():
+    """A hook that keeps each step's wall time (host clock between two
+    device synchronisations)."""
+    from repro_torch.api import Hook
+
+    class Walls(Hook):
+        def __init__(self):
+            self.step_s = []
+
+        def on_step_start(self, loop, step, b, meta):
+            torch.cuda.synchronize()
+            self.t0 = time.perf_counter()
+
+        def on_step_end(self, loop, step, m):
+            torch.cuda.synchronize()
+            self.step_s.append(time.perf_counter() - self.t0)
+    return Walls()
+
+
 def run_dense_configs():
     """Phase 28: lm-100m trained with ``prod`` at full size (f32: K4 on f32
     logits, K5's f32 kernel), internlm2-20b scored at full width and depth,
@@ -3208,21 +3287,23 @@ def run_dense_configs():
         f"seq_len 4096 -> 1024, global_batch 256 -> {BATCH}, steps 1000 -> "
         f"{STEPS}, telemetry off; the model (97 M parameters, f32) is not "
         f"cut; the pool is scored in f32 (prod scores in bf16)")
-    hook = _plans_hook()
+    walls = _step_walls()
     k4.launches = 0
     _k5_zero(k5)
     t0 = time.perf_counter()
     _, hist = repro_torch.train("lm-100m", preset="prod", overrides=over,
-                                hooks=[hook])
+                                hooks=[walls])
     torch.cuda.synchronize()
     cfg = get_config("lm-100m")
     k4n, k5_by = k4.launches, dict(k5.launches_by_kernel)
     assert all(math.isfinite(h["loss"]) for h in hist), hist
     assert k4n == 8 * STEPS, k4n
-    assert k5_by == _k5_counts(mma=cfg.n_layers * STEPS), k5_by
+    assert k5_by == _k5_counts(f32=cfg.n_layers * STEPS), k5_by
     res["lm-100m"] = dict(k4_launches=k4n, k5_launches_by_kernel=k5_by,
                           losses=[h["loss"] for h in hist],
-                          wall_s=time.perf_counter() - t0)
+                          wall_s=time.perf_counter() - t0,
+                          step_s=walls.step_s,
+                          steps_1_3_s=sum(walls.step_s[1:]))
     log("[lm-100m] " + json.dumps(res["lm-100m"]))
     gc.collect()
     torch.cuda.empty_cache()
@@ -3481,12 +3562,14 @@ def main():
                dict(name="flash_attention", route="cuda",
                     builds=[(k5.LIB_WGMMA, k5.SOURCES_WGMMA),
                             (k5.LIB, k5.SOURCES),
-                            (k5.LIB_DECODE, k5.SOURCES_DECODE)],
+                            (k5.LIB_DECODE, k5.SOURCES_DECODE),
+                            (k5.LIB_F32, k5.SOURCES_F32)],
                     source=csrc.format("flash_attn",
                                        "flash_attn_fwd_wgmma.cu"),
                     replaces="src/repro/kernels/flash_attn/flash_attn.py:66",
-                    held_by="phase 13 (K5, the wgmma and mma kernels), "
-                            "15 (serve lm-tiny, mma), 16 (cell C: beside "
+                    held_by="phase 13 (K5, the wgmma, f32 and mma "
+                            "kernels), 15 (serve lm-tiny: f32 prefill, mma "
+                            "decode), 16 (cell C: beside "
                             "every plain attention call, and the route "
                             "against the plain route), 23 (hd 256: the "
                             "wgmma256, decode and mma kernels; windows), 24 "
@@ -3529,6 +3612,7 @@ def main():
     smi = phase("1 card", card)
     libs = phase("2 build", build_all, kernels)
     wgmma_build = check_wgmma_build(libs)
+    f32_ptxas = check_f32_build()
     gen = torch.Generator(device="cuda").manual_seed(0)
     err = phase("3 K4", check_k4, gen)
     phase("4 prune", check_prune, gen)
@@ -3601,6 +3685,7 @@ def main():
         return max(c["max_abs_err"] for c in k5_cases.values()
                    if c["kernel"] == kernel)
     g3, d256 = k5_256_t["prefill"], k5_256_t["decode"]
+    f32r = k5_t["f32 pool (12, 1024)"]
     ps_key = f"pool_select ({POOL[0]}, {POOL[1]}) k {BATCH}"
     ps_cell_e = {k: ps_t[ps_key][k]
                  for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
@@ -3693,11 +3778,34 @@ def main():
                                 "(b 8, 16/8 heads of 256, not causal); "
                                 "4 rings in rotation and the 1087-key "
                                 "global prefix beside it"),
+                  dict(name="flash_f32", route="cuda",
+                       source=csrc.format("flash_attn",
+                                          "flash_attn_fwd_f32.cu"),
+                       serves="f32 prefill and scoring: hd 16/32/64/128, sq "
+                              f">= {k5.F32_MIN_ROWS}, 16-byte aligned (cell "
+                              "I's pool, lm-tiny, the reduced configs)",
+                       launches=dense["lm-100m"]["k5_launches_by_kernel"][
+                           "f32"],
+                       launches_by_path=k5_paths("f32"),
+                       max_abs_err=k5_worst("f32"), ms=f32r["ms"],
+                       plain_ms=f32r["plain_ms"],
+                       bound_ms=f32r["bound_ms"], bound_by=f32r["bound_by"],
+                       library_ms=f32r["library_ms"],
+                       library_ms_by_backend=f32r["library_ms_by_backend"],
+                       tflops=f32r["tflops"],
+                       share_of_bound=f32r["share_of_bound"],
+                       mma_ms=f32r["mma_ms"], ptxas=f32_ptxas,
+                       timed_by=f32r["timed_by"],
+                       timed_at="cell I's pool scoring (12, 1024, 10/5, 64), "
+                                "causal; mma_ms: the mma.sync kernel's f32 "
+                                "path on the same values (what this shape "
+                                "took before the f32 kernel)"),
                   dict(name="flash_mma", route="cuda",
                        source=csrc.format("flash_attn", "flash_attn_fwd.cu"),
-                       serves="the hd-128 decode, f32, other head dims, "
+                       serves="the hd-128 and f32 decodes, other head dims, "
                               "hd-256 prefills off TMA's alignment or under "
-                              "64 rows, unaligned views",
+                              "64 rows, f32 and bf16 calls the fast kernels "
+                              "refuse (unaligned views, short calls)",
                        launches=cell_c["k5_launches_by_kernel"]["mma"],
                        launches_by_path=k5_paths("mma"),
                        max_abs_err=k5_worst("mma"), ms=dec["ms"],
@@ -3706,12 +3814,11 @@ def main():
                        library_ms=dec["library_ms"],
                        library_ms_by_backend=None,
                        by_shape_hd256=k5_256_t, ptxas_hd256=ptxas_256,
-                       f32=k5_t["f32 pool (12, 1024)"],
                        timed_at="cell C decode (device time); on the "
                                 "wgmma shapes as mma_ms in by_shape; "
                                 "gemma3's prefill and its decode (mma_ms) "
                                 "at hd 256 in by_shape_hd256; cell I's f32 "
-                                "pool scoring in f32")]),
+                                "pool scoring as flash_f32's mma_ms")]),
         entry(3, launches=k1_launches, max_abs_err=k1_err, ms=k1_t[0],
               plain_ms=k1_t[1], bound_ms=k1_t[2], bound_by=k1_t[3],
               library_ms=None, launches_by_path={

@@ -25,11 +25,14 @@
 // take bf16 prefill and scoring at hd = 128 and 256 (the wrapper's
 // kernel_for rule: at least 64 query rows, TMA-aligned q, k, v), and the
 // decode kernel (flash_attn_decode.cu) bf16 at hd 256 with one query row
-// (gemma3's decode); this kernel serves the hd-128 decode (sq = 1, the kv
-// range split), f32 (lm-tiny, lm-100m), the other bf16 head dims and calls
-// not aligned for TMA. Its hd-256 instance stays for the hd-256 prefills
-// the wgmma kernel refuses (fewer than 64 query rows, off TMA's alignment,
-// a softmax scale <= 0).
+// (gemma3's decode); f32 prefill and scoring (lm-100m's pool, lm-tiny, the
+// reduced configs: hd 16-128, at least 16 query rows, 16-byte aligned) go
+// to flash_attn_fwd_f32.cu. This kernel serves the hd-128 decode (sq = 1,
+// the kv range split), the f32 decode and the f32 calls flash_attn_fwd_f32
+// refuses (fewer query rows, views off 16 bytes, other head dims), the
+// other bf16 head dims and calls not aligned for TMA. Its hd-256 instance
+// stays for the hd-256 prefills the wgmma kernel refuses (fewer than 64
+// query rows, off TMA's alignment, a softmax scale <= 0).
 //
 // Bound: at decode (sq = 1) reading the cache once is the bound; a
 // prefill (4*b*hq*hd*sum_i(i+1) flop) is compute-bound.
@@ -44,8 +47,9 @@
 //     staged once in shared memory (64 rows x 256, 33 KB) and its
 //     fragments are loaded per 16-column step, and a kv tile is 32 keys
 //     (the S tile 16 registers, not 32): about 100 KB of shared memory.
-//   * f32: plain f32 FMA (no TF32), one key per lane, for the reference's
-//     2e-4 tolerance; shapes this small-model path serves are tiny.
+//   * f32: plain f32 FMA (no TF32, for the reference's 2e-4 tolerance), one
+//     key per lane, with the kv split: the f32 decode and the f32 calls the
+//     register-tiled f32 kernel (flash_attn_fwd_f32.cu) refuses.
 //   * tiles wholly above the causal diagonal or before the window of every
 //     row in the block are never visited;
 //   * when the grid would not fill the card (decode) the kv range is split

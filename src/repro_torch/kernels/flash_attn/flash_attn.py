@@ -1,8 +1,9 @@
 """K5 on Hopper: the flash-attention forward, hand-written CUDA.
 
-Three kernels replace the TPU kernel ``flash_attention_pallas`` of
+Four kernels replace the TPU kernel ``flash_attention_pallas`` of
 ``repro/kernels/flash_attn/flash_attn.py`` (and the fold of its wrapper),
-registered together as ``torch.ops.repro_torch.flash_attention``:
+registered together as ``torch.ops.repro_torch.flash_attention``; five
+routes lead to them:
 
 * ``wgmma`` (library ``LIB_WGMMA``): prefill and scoring, a
   warp-specialised forward on ``wgmma`` and TMA with a persistent grid,
@@ -15,10 +16,17 @@ registered together as ``torch.ops.repro_torch.flash_attention``:
   global caches), f32 FMA on CUDA cores, whole key rows streamed by
   cp.async, the key range split by ``decode_split`` and a pair's splits
   merged in the same launch through a thread block cluster;
+* ``f32`` (``csrc/flash_attn_fwd_f32.cu``, library ``LIB_F32``): f32
+  prefill and scoring (lm-100m's pool, lm-tiny, the reduced configs) at
+  hd in ``F32_HD`` with at least ``F32_MIN_ROWS`` query rows and 16-byte
+  aligned q, k and v: an SGEMM-style register-tiled flash forward on f32
+  FMA, K and V through a cp.async ring, row blocks heaviest first
+  (``f32_walk`` transcribes its walk);
 * ``mma`` (``csrc/flash_attn_fwd.cu``, library ``LIB``): everything else
-  the port calls, the hd-128 decode (one query row, the kv range split
-  over blocks), f32, the other bf16 head dims (16, 32, 64) and the hd-256
-  prefills the wgmma kernel refuses, on ``mma.sync``.
+  the port calls, the hd-128 decode and the f32 decode (one query row, the
+  kv range split over blocks), the other bf16 head dims (16, 32, 64), the
+  hd-256 prefills the wgmma kernel refuses and the f32 calls the f32
+  kernel refuses, on ``mma.sync`` (bf16) and plain FMA (f32).
 
 ``kernel_for`` is the dispatch rule, a pure function of dtype, shape and
 alignment; ``plan`` checks a call and names its kernel. Each library is
@@ -30,8 +38,8 @@ picks that only for CPU tensors or ``interpret=True``).
 
 ``launches`` counts the wrapper's launches and ``launches_by_kernel`` each
 kernel's where it launches: ``"wgmma"`` (hd 128), ``"wgmma256"`` (hd 256),
-``"decode256"`` and ``"mma"``; ``chip_smoke.py`` zeroes them around a
-main path to show which kernel the path went through.
+``"decode256"``, ``"f32"`` and ``"mma"``; ``chip_smoke.py`` zeroes them
+around a main path to show which kernel the path went through.
 """
 import ctypes
 import functools
@@ -48,6 +56,8 @@ SOURCES_WGMMA = tuple(Path(__file__).with_name("csrc") / f for f in (
     "flash_attn_wgmma.cuh"))
 LIB_DECODE = "flash_attn_decode"        # the hd-256 decode kernel's library
 SOURCES_DECODE = (Path(__file__).with_name("csrc") / "flash_attn_decode.cu",)
+LIB_F32 = "flash_attn_fwd_f32"          # the f32 prefill kernel's library
+SOURCES_F32 = (Path(__file__).with_name("csrc") / "flash_attn_fwd_f32.cu",)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _BF16_HD = (16, 32, 64, 128, 256)
 _ROWS = 64                              # packed query rows per block
@@ -61,9 +71,22 @@ DECODE_TILE = 32                        # keys a block step: 8 warps x 4
 DECODE_BLOCKS_PER_SM = 2                # resident blocks an SM
 DECODE_MAX_G = 4                        # query heads a block
 DECODE_MAX_SPLIT = 8                    # blocks a cluster (portable)
+# the f32 kernel (flash_attn_fwd_f32.cu: kBM, kBN)
+F32_HD = (16, 32, 64, 128)
+F32_ROWS = 64                           # packed query rows a block
+F32_TILE = 32                           # keys a kv tile
+# Query rows the f32 kernel asks for. It has no kv split: a call of a few
+# query rows over a long cache (a decode, a short chunk) would run one
+# block per (batch, kv head) through every key, and its rows would be
+# mostly padding of a 64-row block. The mma kernel splits such calls over
+# the kv range. From 16 rows on (a block's 64 packed rows hold 16 positions
+# of 4 heads, 32 of 2) the calls are prefills and scoring forwards: lm-tiny
+# and the reduced configs serve prompts of 24-128, lm-100m scores 1024.
+F32_MIN_ROWS = 16
 
 launches = 0
-launches_by_kernel = {"wgmma": 0, "wgmma256": 0, "decode256": 0, "mma": 0}
+launches_by_kernel = {"wgmma": 0, "wgmma256": 0, "decode256": 0, "f32": 0,
+                      "mma": 0}
 
 
 @functools.cache
@@ -107,6 +130,18 @@ def _lib_decode():
     return fn, occ
 
 
+@functools.cache
+def _lib_f32():
+    """The f32 prefill kernel's launch entry."""
+    from repro_torch.kernels import build
+    fn = build.load(LIB_F32, SOURCES_F32).flash_fwd_f32_launch
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn.argtypes = [p, p, p, p, i, i, i, i, i, i, *[ll] * 12, i, i, i,
+                   ctypes.c_float, p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def decode_occupancy(g_block: int, nsplit: int):
     """The decode kernel's resident blocks an SM for ``g_block`` query
     heads a block, and the clusters of ``nsplit`` such blocks the card
@@ -142,6 +177,20 @@ def _tma_ok(t: Tensor) -> bool:
                     for st in tma_geometry(t)[4:]))
 
 
+def _f32_ok(t: Tensor) -> bool:
+    """16-byte aligned base and strides (the f32 kernel's float4 and
+    cp.async rule); a size-1 dim's stride is never stepped over."""
+    return t.data_ptr() % 16 == 0 and all(
+        st % 4 == 0 for st, n in zip(t.stride()[:3], t.shape[:3]) if n > 1)
+
+
+def _strides(t: Tensor) -> tuple:
+    """t's strides of (b, s, heads), 0 for a size-1 dim (never stepped
+    over; the f32 kernel checks the others' alignment)."""
+    return tuple(st if n > 1 else 0 for st, n in zip(t.stride()[:3],
+                                                       t.shape[:3]))
+
+
 def kernel_for(dtype, hd: int, sq: int, aligned: bool,
                scale: float = 1.0) -> str:
     """The dispatch rule: ``"decode"`` for bf16 at hd ``DECODE_HD`` (256)
@@ -150,15 +199,52 @@ def kernel_for(dtype, hd: int, sq: int, aligned: bool,
     at least ``WGMMA_MIN_ROWS`` query rows (prefill and scoring; below that
     the rows of one head fill less than half a 128-row work tile),
     TMA-aligned q, k and v (``aligned``) and a positive softmax scale (the
-    kernel takes its row max on the unscaled scores); else ``"mma"``
-    (hd-128 decode, f32, other head dims, short or unaligned prefills, any
-    other scale)."""
+    kernel takes its row max on the unscaled scores); ``"f32"`` for f32
+    with hd in ``F32_HD``, at least ``F32_MIN_ROWS`` query rows and 16-byte
+    aligned q, k and v (``aligned``; any scale: its max is on the scaled
+    scores); else ``"mma"`` (the hd-128 and f32 decodes, other head dims,
+    short or unaligned prefills, a bf16 scale <= 0). ``aligned`` is the
+    alignment the dtype's fast kernel asks for."""
     if dtype == torch.bfloat16 and hd == DECODE_HD and sq == 1:
         return "decode"
     if (dtype == torch.bfloat16 and hd in WGMMA_HD and sq >= WGMMA_MIN_ROWS
             and aligned and scale > 0):
         return "wgmma"
+    if dtype == torch.float32 and hd in F32_HD and sq >= F32_MIN_ROWS \
+            and aligned:
+        return "f32"
     return "mma"
+
+
+def f32_walk(b: int, hkv: int, sq: int, g: int, skv: int, causal: bool,
+             window: int, q_offset: int):
+    """The f32 kernel's walk, transcribed from ``flash_attn_fwd_f32.cu``
+    for the CPU tests: its blocks in launch order, each as (batch, kv head,
+    first packed row, the kv tiles it visits, the tiles among them it
+    masks). Block L takes row block nrb - 1 - L // (b·hkv) (heaviest first
+    under the causal edge) of pair L % (b·hkv). A block visits the
+    ``F32_TILE``-key tiles that hold its rows' unmasked keys, and masks a
+    tile unless every key in it is unmasked for every row of the block."""
+    nrows = sq * g
+    nrb = -(-nrows // F32_ROWS)
+    walk = []
+    for blk in range(nrb * b * hkv):
+        row0 = (nrb - 1 - blk // (b * hkv)) * F32_ROWS
+        q_lo = q_offset + row0 // g
+        q_hi = q_offset + (min(row0 + F32_ROWS, nrows) - 1) // g
+        kv_end = min(skv, q_hi + 1) if causal else skv
+        kv_begin = max(0, q_lo - window + 1) if window > 0 else 0
+        t_begin = kv_begin // F32_TILE
+        t_end = -(-kv_end // F32_TILE) if kv_end > kv_begin else t_begin
+        masked = [t for t in range(t_begin, t_end)
+                  if not ((t + 1) * F32_TILE <= skv
+                          and (not causal or (t + 1) * F32_TILE - 1 <= q_lo)
+                          and (window <= 0
+                               or t * F32_TILE > q_hi - window))]
+        pair = blk % (b * hkv)
+        walk.append((pair // hkv, pair % hkv, row0, range(t_begin, t_end),
+                     masked))
+    return walk
 
 
 def decode_keys(skv: int, causal: bool, window: int, q_offset: int):
@@ -259,14 +345,18 @@ def plan(q: Tensor, k: Tensor, v: Tensor, scale: float = 1.0) -> str:
             raise ValueError("bf16 k and v need 16-byte aligned rows, q "
                              "4-byte aligned pairs")
     elif hd > 128:
-        raise ValueError(f"the f32 kernel takes head dims up to 128, got {hd}")
+        raise ValueError(f"f32 calls take head dims up to 128, got {hd}")
     if b * hkv > 65535 or b * sq * hq >= 2 ** 31 or skv >= 2 ** 31:
         raise ValueError(f"shape too large for the kernel's grid: "
                          f"{tuple(q.shape)}, {tuple(k.shape)}")
-    # only the wgmma kernel asks for TMA's alignment
-    aligned = (q.dtype == torch.bfloat16 and hd in WGMMA_HD
-               and sq >= WGMMA_MIN_ROWS
-               and all(_tma_ok(t) for t in (q, k, v)))
+    # the alignment the dtype's fast kernel asks for: TMA's (wgmma), 16
+    # bytes (f32)
+    if q.dtype == torch.bfloat16:
+        aligned = (hd in WGMMA_HD and sq >= WGMMA_MIN_ROWS
+                   and all(_tma_ok(t) for t in (q, k, v)))
+    else:
+        aligned = (hd in F32_HD and sq >= F32_MIN_ROWS
+                   and all(_f32_ok(t) for t in (q, k, v)))
     return kernel_for(q.dtype, hd, sq, aligned, scale)
 
 
@@ -291,6 +381,8 @@ def flash_attention_cuda(q: Tensor, k: Tensor, v: Tensor, causal: bool,
         _launch_wgmma(q, k, v, o, causal, window, q_offset, scale)
     elif kernel == "decode":
         _launch_decode(q, k, v, o, causal, window, q_offset, scale)
+    elif kernel == "f32":
+        _launch_f32(q, k, v, o, causal, window, q_offset, scale)
     else:
         _launch_mma(q, k, v, o, causal, window, q_offset, scale)
     return o
@@ -344,6 +436,26 @@ def _launch_decode(q, k, v, o, causal, window, q_offset, scale):
                            f"cudaError {err}")
     launches += 1
     launches_by_kernel["decode256"] += 1
+
+
+def _launch_f32(q, k, v, o, causal, window, q_offset, scale):
+    """The f32 prefill kernel: one launch, no scratch."""
+    global launches
+    b, sq, hq, hd = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    dev = q.device
+    with torch.cuda.device(dev):
+        err = _lib_f32()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                         o.data_ptr(), b, sq, skv, hq, hkv, hd,
+                         *_strides(q), *_strides(k), *_strides(v),
+                         *_strides(o), int(causal), int(window),
+                         int(q_offset), float(scale),
+                         torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention (f32) launch failed: "
+                           f"cudaError {err}")
+    launches += 1
+    launches_by_kernel["f32"] += 1
 
 
 def _launch_mma(q, k, v, o, causal, window, q_offset, scale):

@@ -226,8 +226,14 @@ def test_forward_only_route_is_chosen_on_cuda(cuda, monkeypatch):
     ("bfloat16", 256, 1, True, "decode"),     # gemma3's decode: the
     ("bfloat16", 256, 1, False, "decode"),    # decode kernel, any alignment
     ("bfloat16", 256, 2, True, "mma"),        # a short hd-256 prefill
-    ("float32", 128, 1024, True, "mma"),      # f32
-    ("float32", 16, 64, True, "mma"),         # lm-tiny
+    ("float32", 128, 1024, True, "f32"),      # f32 prefill: the f32 kernel
+    ("float32", 16, 64, True, "f32"),         # lm-tiny
+    ("float32", 64, 1024, True, "f32"),       # lm-100m's pool (cell I)
+    ("float32", 32, 16, True, "f32"),         # F32_MIN_ROWS
+    ("float32", 16, 40, True, "f32"),         # reduced gemma3's prompt
+    ("float32", 64, 15, True, "mma"),         # under F32_MIN_ROWS
+    ("float32", 64, 1024, False, "mma"),      # not 16-byte aligned
+    ("float32", 80, 1024, True, "mma"),       # a head dim it has no tile for
     ("float32", 64, 1, True, "mma"),          # f32 decode (lm-100m)
     ("float32", 16, 1, True, "mma"),          # lm-tiny's decode
 ])
@@ -251,6 +257,17 @@ def test_dispatch_rule_sends_other_scales_to_mma(scale):
     assert plan(q, k, k, scale) == "mma"
 
 
+@pytest.mark.parametrize("scale", [0.0, -0.1, 0.05, float("nan")])
+def test_f32_route_takes_any_scale(scale):
+    """The f32 kernel takes its row max on the scaled scores, as the mma
+    kernel does: the scale does not move an f32 call off its route."""
+    from repro_torch.kernels.flash_attn.flash_attn import kernel_for, plan
+    assert kernel_for(torch.float32, 64, 1024, True, scale) == "f32"
+    q = torch.zeros(2, 64, 10, 64)
+    k = torch.zeros(2, 64, 5, 64)
+    assert plan(q, k, k, scale) == "f32"
+
+
 def _view_at(shape, offset, dtype=torch.bfloat16):
     """A contiguous tensor of ``shape`` whose base sits ``offset`` elements
     into a larger buffer (misaligned when offset·itemsize % 16 != 0)."""
@@ -270,7 +287,24 @@ def test_plan_names_the_kernel_from_the_tensors():
     # q's row stride 8 bytes off a multiple of 16
     qs = torch.zeros(2, 128, 6, 132, dtype=torch.bfloat16)[..., :128]
     assert plan(qs, k, v) == "mma"
-    assert plan(q.float(), k.float(), v.float()) == "mma"
+    # f32: the f32 kernel for a prefill with 16-byte aligned q, k, v; the
+    # mma kernel for a decode, a short call and views off 16 bytes
+    assert plan(q.float(), k.float(), v.float()) == "f32"
+    cache32 = torch.zeros(2, 300, 2, 128)
+    assert plan(q.float(), cache32[:, :128], cache32[:, :128]) == "f32"
+    assert plan(q[:, :1].float(), k.float(), v.float()) == "mma"
+    assert plan(q[:, :15].float(), k.float(), v.float()) == "mma"
+    assert plan(q[:, :16].float(), k.float(), v.float()) == "f32"
+    assert plan(_view_at(q.shape, 2, torch.float32), k.float(),
+                v.float()) == "mma"                     # base 8 bytes off
+    rows = torch.zeros(2, 300, 2, 132)[..., :128]      # strides 264, 132
+    assert plan(q.float(), rows[:, :128], rows[:, :128]) == "f32"
+    rows = torch.zeros(2, 300, 2, 130)[..., :128]      # head stride 130
+    assert plan(q.float(), rows[:, :128], rows[:, :128]) == "mma"
+    # a size-1 dim's stride is never stepped over
+    one = torch.zeros(3, 128, 6, 128)[:1]
+    assert plan(one.as_strided(one.shape, (7, 768, 128, 1)),
+                cache32[:1, :128], cache32[:1, :128]) == "f32"
     # gemma3's head dim: the wgmma kernel for the prefill over a prefix
     # view, the mma kernel for the decode and for a q off TMA's alignment
     q256 = torch.zeros(2, 128, 16, 256, dtype=torch.bfloat16)
@@ -770,3 +804,119 @@ def test_decode256_occupancy_is_the_split_rule_s(cuda):
     occ = [k5.decode_occupancy(g, 2) for g in range(1, k5.DECODE_MAX_G + 1)]
     assert [n for n, _ in occ] == [k5.DECODE_BLOCKS_PER_SM] * 4
     assert min(c for _, c in occ) >= 64, occ
+
+
+# --- f32 prefill and scoring (lm-100m's pool, lm-tiny, the reduced configs)
+@pytest.mark.parametrize("b,hkv,sq,g,skv,causal,window,q_offset", [
+    (2, 2, 77, 3, 77, True, 0, 0),         # ragged, g = 3
+    (1, 5, 1024, 2, 1024, True, 0, 0),     # cell I's pool, one batch row
+    (2, 1, 200, 2, 456, True, 64, 256),    # window and offset, a cache
+    (1, 2, 130, 1, 130, True, 40, 0),      # window < a tile, g = 1
+    (2, 2, 33, 4, 90, False, 0, 0),        # not causal, past a tile edge
+    (1, 1, 64, 1, 1000, True, 0, 936),     # a short block at a cache's end
+    (1, 3, 16, 2, 64, True, 0, 48),        # F32_MIN_ROWS
+])
+def test_f32_walk_visits_every_block_once_and_every_unmasked_key(
+        b, hkv, sq, g, skv, causal, window, q_offset):
+    """``f32_walk``, the f32 kernel's walk: every (batch, kv head, row
+    block) once, the row blocks in non-increasing order (heaviest first);
+    each block's tiles hold every unmasked key of each of its rows, and
+    a tile the walk leaves unmasked holds only keys unmasked for every row
+    of the block."""
+    from repro_torch.kernels.flash_attn.flash_attn import (
+        F32_ROWS, F32_TILE, f32_walk)
+    walk = f32_walk(b, hkv, sq, g, skv, causal, window, q_offset)
+    nrows = sq * g
+    nrb = -(-nrows // F32_ROWS)
+    blocks = [(bi, h, row0) for bi, h, row0, _, _ in walk]
+    assert sorted(blocks) == sorted(
+        (bi, h, r * F32_ROWS) for bi in range(b) for h in range(hkv)
+        for r in range(nrb))
+    assert [r for _, _, r in blocks] == sorted(
+        (r for _, _, r in blocks), reverse=True)
+    key = np.arange(skv)
+    for _, _, row0, tiles, masked in walk:
+        rows = np.arange(row0, min(row0 + F32_ROWS, nrows))
+        qpos = q_offset + rows // g
+        ok = np.ones((len(rows), skv), bool)
+        if causal:
+            ok &= key[None] <= qpos[:, None]
+        if window:
+            ok &= key[None] > qpos[:, None] - window
+        seen = np.zeros(skv, bool)
+        for t in tiles:
+            seen[t * F32_TILE:(t + 1) * F32_TILE] = True
+            if t not in masked:
+                assert (t + 1) * F32_TILE <= skv
+                assert ok[:, t * F32_TILE:(t + 1) * F32_TILE].all()
+        assert not (ok & ~seen[None]).any()
+        assert all(t in tiles for t in masked)
+
+
+F32_CASES = [
+    # b, sq, skv, hq, hkv, window, q_offset, cache slots (0: no cache),
+    # softmax scale (None: hd^-0.5)
+    (2, 16, 16, 4, 2, 0, 0, 0, None),         # F32_MIN_ROWS, one tile
+    (2, 64, 64, 4, 2, 0, 0, 0, None),         # lm-tiny's prefill
+    (2, 77, 77, 6, 2, 0, 0, 0, None),         # ragged, g = 3
+    (1, 200, 200, 2, 1, 0, 0, 0, None),       # several row blocks, g = 2
+    (2, 77, 177, 4, 2, 0, 100, 300, None),    # offset over a cache view
+    (2, 200, 456, 6, 3, 64, 256, 512, 0.2),   # window, offset, a scale
+    (1, 300, 300, 4, 4, 100, 0, 0, None),     # a window, g = 1
+    (3, 40, 104, 4, 2, 0, 64, 128, 0.3),      # a reduced prompt at 64
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q_scale", [1.0, 6.0])   # 6: a peaked softmax
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,window,q_offset,slots,scale",
+                         F32_CASES)
+def test_f32_kernel_matches_plain_on_gpu(cuda, hd, q_scale, b, sq, skv, hq,
+                                         hkv, window, q_offset, slots,
+                                         scale):
+    """The f32 kernel against the plain version on the card, k and v
+    prefix views of a cache where ``slots``: within 2e-4 of every output
+    and ``ROW_REL`` of each row's largest |output|, finite; its counter
+    alone moves."""
+    from repro_torch.kernels.flash_attn import flash_attn as k5
+    q, k, v = (torch.from_numpy(t).to(cuda)
+               for t in _qkv(b, sq, max(skv, slots), hq, hkv, hd,
+                             seed=sq + hd))
+    q = q * q_scale
+    k, v = k[:, :skv], v[:, :skv]
+    kw = dict(window=window, q_offset=q_offset, scale=scale)
+    before = dict(k5.launches_by_kernel)
+    got = flash_attention(q, k, v, **kw)
+    assert k5.launches_by_kernel == dict(before, f32=before["f32"] + 1)
+    want = flash_attention(q, k, v, interpret=True, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+    assert _row_rel_err(got, want) <= ROW_REL["float32"]
+
+
+@pytest.mark.gpu
+def test_f32_two_launches_give_the_same_bits(cuda):
+    """No atomics: cell I's pool shape (one third of its batch), q peaked,
+    gives the same bits launch after launch."""
+    q, k, v = (torch.from_numpy(t).to(cuda)
+               for t in _qkv(4, 1024, 1024, 10, 5, 64, seed=0))
+    q = q * 6.0
+    first = flash_attention(q, k, v)
+    assert torch.equal(flash_attention(q, k, v), first)
+
+
+@pytest.mark.gpu
+def test_failed_f32_launch_raises(cuda, monkeypatch):
+    """A launch the f32 kernel refuses raises: no other kernel and no plain
+    version takes the call instead, and no count moves."""
+    from repro_torch.kernels.flash_attn import flash_attn as k5
+    monkeypatch.setattr(k5, "_lib_f32", lambda: lambda *a: 1)
+    q = torch.zeros(2, 64, 4, 64, device=cuda)
+    k = torch.zeros(2, 64, 2, 64, device=cuda)
+    assert k5.plan(q, k, k) == "f32"
+    before, by = k5.launches, dict(k5.launches_by_kernel)
+    with pytest.raises(RuntimeError, match="f32"):
+        flash_attention(q, k, k)
+    assert k5.launches == before and k5.launches_by_kernel == by
