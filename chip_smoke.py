@@ -120,8 +120,10 @@ Phases, in order; each raises on failure, so the process exits non-zero:
               an lm-tiny (2, 64, 4/2, 16); a ragged (2, 77) at g = 3; hd
               128; a window with q_offset over a longer cache view at scale
               0.2; hd 32 at scale 0.3), the mma.sync one for decode (bf16
-              and f32) and a bf16 hd-64 prefill; each case's output is
-              finite and a second launch gives the same bits;
+              and f32) and bf16 hd-64 prefills (a ragged (2, 77), granite's
+              pool (12, 1024, 24/8) and musicgen's prefill (8, 1024,
+              24/24)); each case's output is finite and a second launch
+              gives the same bits;
 14. K1       — ``ce_score`` against its plain version on the card: cell
               D's (8·1024, 128256) logits in bf16 and f32, a ragged T over
               a strided view, labels at 0 and V − 1, extreme logits;
@@ -176,6 +178,14 @@ Phases, in order; each raises on failure, so the process exits non-zero:
               its device time (``_device_ms``: CUDA events around calls
               queued behind a spin kernel), since a launch there is shorter
               than its dispatch.
+18c. K5 hd 64 timing — the mma.sync kernel at bf16 hd 64 (granite's and
+              musicgen's attention): granite's pool (12, 1024, 24/8) and
+              musicgen's prefill (8, 1024, 24/24), causal, by CUDA events
+              beside SDPA's default and fused backends (k, v expanded), and
+              musicgen's decode over a 1040-slot cache by device time, each
+              beside its plain version and its bound; each prefill's output
+              on the timed inputs held to ``K5_TOL`` and ``K5_ROW_REL`` of
+              the f32 plain version first.
 
 19. pool_select — the one launch that computes K2 and K3 and the
               selection they feed (``pool_select_cuda``), at cell E's pool
@@ -299,6 +309,40 @@ Phases, in order; each raises on failure, so the process exits non-zero:
               counting says leaves 6 GB of the card free (the cut
               printed), each as phase 17 (K1 once, K5 once a layer,
               wgmma: group sizes 6 and 7).
+29. variance — the paper's Fig. 1 and Fig. 2 (``core.variance``) on the
+              card: ``benchmarks/paper_figures.py``'s d-48 model trained
+              250 uniform steps on ``SyntheticCLS(128, 16, seed=5)``, the
+              gradient-distance ratios at B 96, b 24 and the SSEs and
+              correlations at B 128, the same params on the CPU giving the
+              gradient norms and the uniform, loss and gradient-norm
+              distributions to 1e-4 of their largest entry, and the
+              upper-bound scores and distribution by ``score_impl="naive"``
+              (well conditioned near a well-fit example's 0) to 1e-4 of
+              their largest entry; the fused ĝ² formula's card-CPU gap
+              (its f32 grid ``UB_STEP`` near 0) recorded; the benchmark's
+              claims printed as findings;
+              then Fig. 1 at lm-100m (phase 28's params; 24 rows of 1024
+              tokens, b 6: a 9.3 GB gradient matrix): seconds, peak, K5's
+              12 f32 launches in its ``sample_stats``;
+30. input modes — reduced musicgen-medium (frame embeddings) and
+              llava-next-34b (an image prefix) on the card against the CPU
+              (logits, loss, grads, serve; K5 f32 then mma); musicgen at
+              all 48 layers: ``loss`` and its backward at (4, 1024),
+              ``sample_stats`` under ``"pallas"`` at (8, 1024) (K1 once, K5
+              48 mma) against ``"fused"``, serve of 8 × 1024 embeddings and
+              16 steps (mma in every layer), phase 16's token check; llava
+              at full width (depth by ``_fit_depth``): scored at (8, 576
+              image + 448 text) (K1 once, K5 wgmma once a layer), served
+              with 15 greedy text steps (wgmma, then mma), the token check
+              on 2 rows;
+31. granite — reduced granite-moe-3b-a800m on the card against the CPU
+              (logits, aux, ``prod`` plans and losses); the full model under
+              ``prod`` (seq 1024, batch 4, pool 12, 4 steps, step 2
+              profiled; depth by ``_fit_train_depth``): K4 8 a step at V
+              49155, K5 32 mma a step, each step's capacity drops, routed
+              choices and aux from hooks on the MoE layers, walls, peak;
+              then ``score`` at (8, 1024) under ``"pallas"`` (K1 once, K5
+              32 mma).
 
 Every phase's seconds are printed (``[phase]``). Phase 6 also counts K5,
 which runs cell A's forward-only pool scoring (28 launches a step).
@@ -1644,6 +1688,12 @@ def check_k5(gen):
          256, 512, 1.0, 0.2),
         ("ragged (2,77) 24/8x64 bf16 (the mma kernel's bf16 prefill)",
          "mma", (2, 77, 77, 24, 8, 64), torch.bfloat16, 0, 0, 0),
+        # the mma kernel's bf16 prefill at the main paths' hd-64 shapes:
+        # granite's pool (and its score at 8 rows), musicgen's prefill
+        ("granite pool (12,1024) 24/8x64 bf16", "mma",
+         (12, 1024, 1024, 24, 8, 64), torch.bfloat16, 0, 0, 0),
+        ("musicgen prefill (8,1024) 24/24x64 bf16", "mma",
+         (8, 1024, 1024, 24, 24, 64), torch.bfloat16, 0, 0, 0),
         # f32 prefill and scoring: the f32 kernel
         ("f32 (2,300) 24/8x128", "f32", (2, 300, 300, 24, 8, 128),
          torch.float32, 0, 0, 0),
@@ -1726,36 +1776,60 @@ def check_k1(gen):
     return worst
 
 
-def _teacher_forced(lm, tokens, prompts, steps, q_offset, f32_head=False):
-    """Prefill ``prompts`` into fresh caches, then ``steps`` decode steps
-    fed ``tokens[:, i]``; the last-position logits of each (f32). With
-    ``q_offset`` the steps take K5, else the plain attention paths. With
-    ``f32_head`` also the logits before the lm head's bf16 rounding: the
-    final norm's output times the head's weights, in f32."""
-    b, P = prompts.shape
-    caches = lm.caches(b, P + tokens.shape[1])
-    dev = prompts.device
+def _inputs_len(batch):
+    """The positions one serve step's inputs take (an image prefix's
+    included)."""
+    return sum(batch[k].shape[1] for k in ("tokens", "embeds",
+                                           "image_embeds") if k in batch)
+
+
+def _forced(lm, batches, q_offset, f32_head=False, cap=None):
+    """Serve ``batches`` in order into fresh caches of ``cap`` slots
+    (default: what the batches fill) (the first is the prefill, each later
+    one a decode step); the last-position logits of each (f32). With
+    ``q_offset`` the steps take K5, else the plain attention paths, whose
+    kv chunks run over all ``cap`` slots. With ``f32_head`` also the
+    logits before the lm head's bf16 rounding: the final norm's output
+    times the head's weights, in f32."""
+    b = next(iter(batches[0].values())).shape[0]
+    caches = lm.caches(b, cap or sum(_inputs_len(x) for x in batches))
     hidden = []
     hook = lm.final_norm.register_forward_hook(
         lambda mod, args, h: hidden.append(h[:, -1].float())) \
         if f32_head else None
-
-    def step(toks, start):
-        if q_offset:
-            return lm.serve_step(caches, {"tokens": toks}, q_offset=start)
-        pos = torch.arange(start, start + toks.shape[1], dtype=torch.int32,
-                           device=dev)[None].expand(b, -1)
-        return lm.serve_step(caches, {"tokens": toks, "positions": pos})
-    out = []
+    out, start = [], 0
     with torch.inference_mode():
-        out.append(step(prompts, 0)[0][:, -1].float())
-        for i in range(steps):
-            out.append(step(tokens[:, i:i + 1], P + i)[0][:, -1].float())
+        for x in batches:
+            n = _inputs_len(x)
+            if q_offset:
+                lg = lm.serve_step(caches, x, q_offset=start)[0]
+            else:
+                pos = torch.arange(start, start + n, dtype=torch.int32,
+                                   device=lm.final_norm.scale.device)
+                lg = lm.serve_step(caches, dict(
+                    x, positions=pos[None].expand(b, -1)))[0]
+            out.append(lg[:, -1].float())
+            start += n
         if not f32_head:
             return out
         hook.remove()
         w = (lm.embed.t() if lm.cfg.tie_embeddings else lm.lm_head).float()
         return out, [h @ w for h in hidden]
+
+
+def _token_batches(prompts, tokens, steps):
+    """A prefill of ``prompts``, then ``steps`` decode steps fed
+    ``tokens[:, i]``."""
+    return [{"tokens": prompts}] + [{"tokens": tokens[:, i:i + 1]}
+                                    for i in range(steps)]
+
+
+def _teacher_forced(lm, tokens, prompts, steps, q_offset, f32_head=False):
+    """Prefill ``prompts`` into fresh caches of serve's capacity (the
+    prompt and all of ``tokens``), then ``steps`` decode steps fed
+    ``tokens[:, i]`` (``_forced``)."""
+    return _forced(lm, _token_batches(prompts, tokens, steps), q_offset,
+                   f32_head, cap=prompts.shape[1] + tokens.shape[1])
 
 
 @contextlib.contextmanager
@@ -1960,36 +2034,41 @@ def profile_serve(lm, prompts, toks, row, out, steps=4, tag="C",
     return res
 
 
-def _route_check(lm, prompts, toks, steps, n_layers, tag):
+def _route_check(lm, prompts, toks, steps, n_layers, tag, batches=None):
     """Phase 16's token check of a served model: the prefill and ``steps``
     teacher-forced decode steps on serve's tokens ``toks`` through the K5
     route and through the plain route, with (a) K5 run beside each plain
     attention call on that call's own inputs, (b) the f32 logits' drift
     between the routes against the plain route's own under re-chunking,
     (c) ``_token_check``, (d) serve's
-    tokens reproduced by the K5 route. Returns the record."""
+    tokens reproduced by the K5 route. ``batches`` (``_forced``'s) replaces
+    the token prefill and steps where the inputs are not serve's tokens
+    (musicgen's frame embeddings: no (d)). Returns the record."""
     from repro_torch.models import attention
-    fast, fast32 = _teacher_forced(lm, toks, prompts, steps, True, True)
+    cap = None
+    if batches is None:          # serve's tokens, in caches of serve's size
+        batches = _token_batches(prompts, toks, steps)
+        cap = prompts.shape[1] + toks.shape[1]
+    fast, fast32 = _forced(lm, batches, True, True, cap)
     # the plain route, with K5 run beside each attention call on that
     # call's own inputs: every layer of the prefill and of each step
     layer = []
     with _swapped(attention, "attention_op", _k5_beside(layer)):
-        plain, plain32 = _teacher_forced(lm, toks, prompts, steps, False,
-                                         True)
+        plain, plain32 = _forced(lm, batches, False, True, cap)
     # the plain route again with its blockwise attention in other chunks
     # (the same f32 sums in another order): the ruler of how far two
-    # equally valid routes drift apart over 28 bf16 layers
+    # equally valid routes drift apart over the model's bf16 layers
     with _swapped(attention, "online_attention", lambda real:
                   functools.partial(real, q_chunk=1024, kv_chunk=512)):
-        again, again32 = _teacher_forced(lm, toks, prompts, steps, False,
-                                         True)
+        again, again32 = _forced(lm, batches, False, True, cap)
     errs, scales, agree = [], [], []
     for i, (f, p) in enumerate(zip(fast, plain)):
         errs.append(float((f - p).abs().max()))
         scales.append(float(p.abs().max()))
         agree.append(float((f.argmax(-1) == p.argmax(-1)).float().mean()))
         # the K5 route reproduces serve's own greedy tokens
-        assert torch.equal(f.argmax(-1), toks[:, i]), i
+        if toks is not None and i < toks.shape[1]:
+            assert torch.equal(f.argmax(-1), toks[:, i]), i
     for e, s in zip(errs, scales):
         assert math.isfinite(e) and e < 0.05 * s, (errs, scales)
     # K5 on the plain route's own activations, each layer and step, within
@@ -2031,8 +2110,9 @@ def _route_check(lm, prompts, toks, steps, n_layers, tag):
         f"{tokens['tie_ruler']:.4e}), K5 flips "
         f"{len(tokens['k5_flips'])} ({tokens['k5_flips_at_ties']} at ties), "
         f"plain re-chunked flips {len(tokens['plain_rechunked_flips'])} "
-        f"({tokens['plain_rechunked_flips_at_ties']} at ties); (d) the K5 "
-        f"route reproduces serve's tokens")
+        f"({tokens['plain_rechunked_flips_at_ties']} at ties)"
+        + ("; (d) the K5 route reproduces serve's tokens"
+           if toks is not None else ""))
     del fast, plain, again, fast32, plain32, again32
     return cmp
 
@@ -3276,7 +3356,8 @@ def _step_walls():
 def run_dense_configs():
     """Phase 28: lm-100m trained with ``prod`` at full size (f32: K4 on f32
     logits, K5's f32 kernel), internlm2-20b scored at full width and depth,
-    yi-34b scored at full width and the depth ``_fit_depth`` gives."""
+    yi-34b scored at full width and the depth ``_fit_depth`` gives.
+    Returns (the record, lm-100m's trained parameters by name)."""
     import repro_torch
     from repro_torch.configs import get_config
     from repro_torch.kernels.ce_score import ce_score as k4
@@ -3291,8 +3372,10 @@ def run_dense_configs():
     k4.launches = 0
     _k5_zero(k5)
     t0 = time.perf_counter()
-    _, hist = repro_torch.train("lm-100m", preset="prod", overrides=over,
-                                hooks=[walls])
+    state, hist = repro_torch.train("lm-100m", preset="prod",
+                                    overrides=over, hooks=[walls])
+    lm100 = {n: p.detach() for n, p in state["params"].items()}
+    del state
     torch.cuda.synchronize()
     cfg = get_config("lm-100m")
     k4n, k5_by = k4.launches, dict(k5.launches_by_kernel)
@@ -3329,7 +3412,7 @@ def run_dense_configs():
         "4096 -> 1024, global_batch 256 -> 8; width and vocab are not cut")
     res["yi-34b"] = dict(row, k1_launches=k1, n_layers=cfg.n_layers,
                          counted_gb=need / 1e9, card_gb=total / 1e9)
-    return res
+    return res, lm100
 
 
 def _attn_flops(b, hq, hd, sq, skv, window, causal=True, q_offset=0):
@@ -3537,6 +3620,807 @@ def time_k5_hd256(gen):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 29: the paper's variance diagnostics (Fig. 1 and Fig. 2)
+# ---------------------------------------------------------------------------
+BENCH_STEPS = 250   # benchmarks/paper_figures.py's _trained_cls
+UB_STEP = 2.0 ** -10  # an upper-bound score's f32 grid near 0: the sqrt of
+                      # 16 ulps of 1.0 (2^-20) in the fused ĝ² formula
+VARIANCE_LM = dict(rows=24, b=6, seq=1024)   # lm-100m: a 9.3 GB (B, P) matrix
+
+
+def _bench_cfg():
+    """The model of ``benchmarks/paper_figures.py`` (``benchmarks.common.
+    bench_model(d=48, layers=2, vocab=128)``) as the port's config: 2
+    layers, d 48, 4 MHA heads of 12, d_ff 96, vocab 128, f32."""
+    from repro_torch.configs.base import ATTN, ModelConfig, Segment
+    return ModelConfig(name="bench-48x2", family="dense", d_model=48,
+                       n_heads=4, n_kv_heads=4, d_ff=96, vocab_size=128,
+                       segments=(Segment((ATTN,), 2),), dtype="float32")
+
+
+def _on(batch, device="cuda"):
+    return {k: torch.as_tensor(np.ascontiguousarray(v)).to(device)
+            for k, v in batch.items()}
+
+
+def _close_to_largest(got, want, rel, what):
+    """max |got − want| within ``rel`` of max |want| (small entries of a
+    distribution are differences of large f32 terms)."""
+    err = float((got.cpu().double() - want.double()).abs().max())
+    scale = float(want.abs().max())
+    assert err <= rel * scale, (what, err, scale)
+    return err / scale
+
+
+def run_variance(lm100):
+    """Phase 29: (a) ``benchmarks/paper_figures.py``'s setting on the card:
+    the d-48 model trained ``BENCH_STEPS`` uniform steps on
+    ``SyntheticCLS(128, 16, seed=5)``, Fig. 1 (``grad_distance_reduction``
+    at B 96, b 24, 10 rounds) and Fig. 2 (``correlation_sse`` at B 128),
+    and the same params on the CPU: the per-sample gradient norms and the
+    four distributions to 1e-4 of their largest entry; the benchmark's two
+    claims printed as findings, not gates. (b) lm-100m at full width with
+    phase 28's trained params: Fig. 1 over 24 rows of 1024 tokens, b 6 (a
+    9.3 GB gradient matrix): seconds, peak, the f32 K5 launches of its
+    ``sample_stats``. The upper bound is held card against CPU through
+    ``score_impl="naive"``: the default fused formula puts a well-fit
+    example's score on an f32 grid of ``UB_STEP`` near 0, so its gap is
+    recorded, not held."""
+    from repro_torch.api import Experiment
+    from repro_torch.checkpoint import interop
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import (ISConfig, OptimConfig, RunConfig,
+                                          ShapeConfig)
+    from repro_torch.core import variance
+    from repro_torch.data.pipeline import (PipelineState, SyntheticCLS,
+                                           SyntheticLM)
+    from repro_torch.kernels.flash_attn import flash_attn as k5
+    from repro_torch.models.lm import LM
+    res = {}
+    cfg = _bench_cfg()
+    run = RunConfig(model=cfg, shape=ShapeConfig("bench", seq_len=16,
+                                                 global_batch=16,
+                                                 kind="train"),
+                    optim=OptimConfig(name="adamw", lr=2e-3,
+                                      weight_decay=0.0),
+                    imp=ISConfig(enabled=False, presample_ratio=3,
+                                 tau_th=1.3),
+                    remat=False, seed=0, steps=BENCH_STEPS)
+    src = SyntheticCLS(128, 16, seed=5)
+    log(f"[variance] benchmarks/paper_figures.py's model ({cfg.name}: "
+        f"{cfg.param_count()} parameters, f32) trained {BENCH_STEPS} "
+        "uniform steps (adamw 2e-3, batch 16) on SyntheticCLS(128, 16, "
+        "seed=5) on the card; no cut")
+    t0 = time.perf_counter()
+    exp = Experiment(run, source=src, device="cuda", gate="never")
+    _, hist = exp.fit(steps=BENCH_STEPS)
+    torch.cuda.synchronize()
+    res["train_s"] = time.perf_counter() - t0
+    assert len(hist) == BENCH_STEPS
+    assert all(math.isfinite(h["loss"]) for h in hist), hist[-1]
+    res["loss_first_last"] = [hist[0]["loss"], hist[-1]["loss"]]
+    lm = exp.lm
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    b1, _ = src.batch(PipelineState(epoch=7), 96)
+    _k5_zero(k5)
+    t0 = time.perf_counter()
+    ratios = variance.grad_distance_reduction(lm, _on(b1), 24, gen,
+                                              n_rounds=10)
+    res["fig1_s"] = time.perf_counter() - t0
+    # sample_stats' forward: K5 in each layer (hd 12: the mma kernel)
+    assert k5.launches_by_kernel == _k5_counts(mma=cfg.n_layers), \
+        k5.launches_by_kernel
+    assert ratios["uniform"] == 1.0
+    assert all(math.isfinite(v) and v > 0 for v in ratios.values()), ratios
+    res["fig1"] = ratios
+    b2, _ = src.batch(PipelineState(epoch=3), 128)
+    t0 = time.perf_counter()
+    sse, dists = variance.correlation_sse(lm, _on(b2))
+    res["fig2_s"] = time.perf_counter() - t0
+    gn = dists["gradient-norm"].cpu().numpy()
+    corr = {k: float(np.corrcoef(dists[k].cpu().numpy(), gn)[0, 1])
+            for k in ("upper-bound", "loss")}
+    assert all(math.isfinite(v) for v in list(sse.values()) +
+               list(corr.values())), (sse, corr)
+    res["fig2"] = dict(sse=sse, corr_upper_bound=corr["upper-bound"],
+                       corr_loss=corr["loss"],
+                       sse_ratio_loss_over_ub=sse["loss"]
+                       / max(sse["upper-bound"], 1e-12))
+    # the same params on the CPU: the gradient norms and the distributions.
+    # The upper bound's score is sqrt(Σ ĝ²); the default fused formula
+    # exp(lse2 − 2 lse) − 2 exp(z_y − lse) + 1 cancels for a well-fit
+    # example (scores on a grid of f32 steps of 1 under the sqrt: 0 or
+    # 2^-12 ...), so the upper bound is held through the naive formula
+    # Σ (p − onehot)², which is well conditioned there; the fused gap is
+    # recorded
+    cpu = interop.params_from_numpy(interop.params_to_numpy(lm), cfg, "cpu")
+    dg, gg = variance.sampling_distributions(lm, _on(b2))
+    dc, gc_ = variance.sampling_distributions(cpu, _on(b2, "cpu"))
+    res["cpu_rel_err"] = {"grad_norm": _close_to_largest(
+        torch.linalg.norm(gg, dim=1), torch.linalg.norm(gc_, dim=1), 1e-4,
+        "grad norm")}
+    for k in ("uniform", "loss", "gradient-norm"):
+        res["cpu_rel_err"][k] = _close_to_largest(dg[k], dc[k], 1e-4, k)
+    from repro_torch.core.importance import normalize_scores
+    sg = lm.sample_stats(_on(b2), score_impl="naive")[1].cpu()
+    sc = cpu.sample_stats(_on(b2, "cpu"), score_impl="naive")[1]
+    res["cpu_rel_err"]["upper-bound naive scores"] = _close_to_largest(
+        sg, sc, 1e-4, "upper-bound naive scores")
+    res["cpu_rel_err"]["upper-bound naive"] = _close_to_largest(
+        normalize_scores(sg), normalize_scores(sc), 1e-4, "upper-bound naive")
+    fg = lm.sample_stats(_on(b2))[1].cpu()
+    fc = cpu.sample_stats(_on(b2, "cpu"))[1]
+    res["ub_fused"] = dict(
+        score_max_abs_err=float((fg - fc).abs().max()),
+        dist_rel_err=float((dg["upper-bound"].cpu() - dc["upper-bound"])
+                           .abs().max() / dc["upper-bound"].abs().max()),
+        card_vs_naive_max_abs_err=float((fg - sg).abs().max()),
+        scores_under_4_steps=int((fc < 4 * UB_STEP).sum()))
+    del gg, gc_, cpu
+    claims = {
+        "fig1.upper_bound_reduces_variance":
+            ratios["upper-bound"] < 1.0
+            and ratios["upper-bound"] <= ratios["loss"] + 0.05,
+        "fig2.upper_bound_tighter_than_loss":
+            sse["upper-bound"] < sse["loss"]
+            and corr["upper-bound"] > corr["loss"]}
+    res["claims"] = claims
+    log(f"[variance] fig 1 (B 96, b 24, 10 rounds; distance to the full "
+        f"batch's mean gradient over the uniform draw's): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in ratios.items())
+        + f"; fig 2 (B 128): SSE loss {sse['loss']:.6f}, upper-bound "
+        f"{sse['upper-bound']:.6f} (ratio "
+        f"{res['fig2']['sse_ratio_loss_over_ub']:.3f}), correlation with "
+        f"the gradient norm: upper-bound {corr['upper-bound']:.4f}, loss "
+        f"{corr['loss']:.4f}; card against the CPU (largest-entry "
+        f"relative, held to 1e-4; the upper bound by the naive formula): "
+        + json.dumps(res["cpu_rel_err"]) + "; the fused formula's upper "
+        f"bound, recorded: " + json.dumps(res["ub_fused"]) + f" (grid "
+        f"{UB_STEP:.3e} near 0)")
+    log(f"[variance] findings (not gates), benchmarks/paper_figures.py's "
+        f"claims: " + json.dumps(claims))
+    del exp, lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (b) lm-100m at full width
+    cfg = get_config("lm-100m")
+    lm = LM(cfg, "cuda")
+    with torch.no_grad():
+        for n, p in lm.named_parameters():
+            p.copy_(lm100[n])
+    rows, b, seq = VARIANCE_LM["rows"], VARIANCE_LM["b"], VARIANCE_LM["seq"]
+    n_params = sum(p.numel() for p in lm.parameters())
+    log(f"[variance] lm-100m ({n_params} parameters, f32), phase 28's "
+        f"trained params; Fig. 1 at B {rows} rows of SyntheticLM at "
+        f"{seq} tokens, b {b}, 10 rounds: a ({rows}, {n_params}) f32 "
+        f"gradient matrix, {4 * rows * n_params / 1e9:.2f} GB; no cut")
+    batch, _ = SyntheticLM(cfg.vocab_size, seq).batch(
+        PipelineState(epoch=9), rows)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _k5_zero(k5)
+    t0 = time.perf_counter()
+    ratios = variance.grad_distance_reduction(
+        lm, _on(batch), b, torch.Generator(device="cuda").manual_seed(1),
+        n_rounds=10)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k5_by = dict(k5.launches_by_kernel)
+    assert k5_by == _k5_counts(f32=cfg.n_layers), k5_by
+    assert ratios["uniform"] == 1.0
+    assert all(math.isfinite(v) and v > 0 for v in ratios.values()), ratios
+    res["lm-100m"] = dict(fig1=ratios, wall_s=wall, rows=rows, b=b, seq=seq,
+                          matrix_gb=4 * rows * n_params / 1e9,
+                          peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                          k5_launches_by_kernel=k5_by)
+    log("[variance] lm-100m: " + json.dumps(res["lm-100m"]))
+    del lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 30: the input modes (musicgen-medium, llava-next-34b)
+# ---------------------------------------------------------------------------
+MUSICGEN_SERVE = dict(batch=8, prompt_len=1024, gen=16)
+LLAVA_SERVE = dict(batch=8, prompt_len=1024, gen=16)   # 576 image + 448 text
+
+
+def _mode_batch(cfg, rows, s, seed, device="cuda"):
+    """Seeded inputs of ``cfg``'s input mode over ``s`` positions in all
+    (an image prefix's included): frame embeddings, or token ids after
+    ``n_prefix_embeds`` image embeddings (standard normal), and the text's
+    labels (−1 on some rows' last 5)."""
+    rng = np.random.default_rng(seed)
+    n_img = cfg.n_prefix_embeds if cfg.input_mode == "tokens+image" else 0
+    out = {}
+    if cfg.input_mode == "embeddings":
+        out["embeds"] = rng.standard_normal((rows, s, cfg.d_model),
+                                            dtype=np.float32)
+    else:
+        out["tokens"] = rng.integers(0, cfg.vocab_size, (rows, s - n_img))
+    if n_img:
+        out["image_embeds"] = rng.standard_normal((rows, n_img, cfg.d_model),
+                                                  dtype=np.float32)
+    labels = rng.integers(0, cfg.vocab_size, (rows, s - n_img))
+    labels[1::3, -5:] = -1
+    out["labels"] = labels
+    return _on(out, device)
+
+
+def _mode_steps(cfg, rows, P, steps, seed, device="cuda"):
+    """``_forced``'s batches: a prefill of P positions of ``cfg``'s input
+    mode (frame embeddings, or an image prefix and text), then ``steps``
+    one-position decode steps (frame embeddings, or text)."""
+    pre = _mode_batch(cfg, rows, P, seed, device)
+    pre.pop("labels")
+    g = torch.Generator().manual_seed(seed)
+    if cfg.input_mode == "embeddings":
+        nxt = [{"embeds": torch.randn((rows, 1, cfg.d_model),
+                                      generator=g).to(device)}
+               for _ in range(steps)]
+    else:
+        nxt = [{"tokens": torch.randint(0, cfg.vocab_size, (rows, 1),
+                                        generator=g).to(device)}
+               for _ in range(steps)]
+    return [pre] + nxt
+
+
+def _check_mode_reduced(arch):
+    """``reduced(arch, repeats=2)`` (f32) on the card against the CPU from
+    the same params: the forward-only logits (K5's f32 kernel in every
+    layer), the loss and every gradient, and serve's prefill of 40
+    positions and 3 decode steps (K5: the prefill on f32, the decodes on
+    mma); each to 1e-3."""
+    from repro_torch.checkpoint import interop
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.kernels.flash_attn import flash_attn as k5
+    from repro_torch.models.lm import LM
+    cfg = reduced(get_config(arch), repeats=2)
+    n = cfg.n_layers
+    gpu = LM(cfg, "cuda")
+    cpu = interop.params_from_numpy(interop.params_to_numpy(gpu), cfg, "cpu")
+    batch = _mode_batch(cfg, 2, 96, seed=30)
+    cb = {k: v.cpu() for k, v in batch.items()}
+    _k5_zero(k5)
+    with torch.inference_mode():
+        lg, lc = gpu(batch).cpu(), cpu(cb)
+    assert k5.launches_by_kernel == _k5_counts(f32=n), k5.launches_by_kernel
+    rec = dict(forward_max_abs_err=float((lg - lc).abs().max()))
+    losses = []
+    for lm, x in ((gpu, batch), (cpu, cb)):
+        lm.zero_grad(set_to_none=True)
+        loss, _ = lm.loss(x)
+        loss.backward()
+        losses.append(float(loss.detach()))
+    gerr = max(float((a.grad.cpu() - b.grad).abs().max())
+               / max(1.0, float(b.grad.abs().max()))
+               for a, b in zip(gpu.parameters(), cpu.parameters()))
+    rec.update(loss_card_cpu=losses, grad_max_rel_err=gerr)
+    steps = _mode_steps(cfg, 2, 40, 3, seed=31)
+    _k5_zero(k5)
+    pg = _forced(gpu, steps, True)
+    pc = _forced(cpu, [{k: v.cpu() for k, v in x.items()} for x in steps],
+                 True)
+    assert k5.launches_by_kernel == _k5_counts(f32=n, mma=3 * n), \
+        k5.launches_by_kernel
+    rec["serve_max_abs_err"] = max(float((a.cpu() - b).abs().max())
+                                   for a, b in zip(pg, pc))
+    assert rec["forward_max_abs_err"] < 1e-3, rec
+    assert abs(losses[0] - losses[1]) < 1e-3 and gerr < 1e-3, rec
+    assert rec["serve_max_abs_err"] < 1e-3, rec
+    log(f"[input modes] {cfg.name} ({cfg.input_mode}), card against CPU: "
+        + json.dumps(rec))
+    for lm in (gpu, cpu):
+        lm.zero_grad(set_to_none=True)
+    del gpu, cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _serve_timed(lm, prefill, gen, next_inputs):
+    """A prefill into fresh caches, then ``gen − 1`` decode steps through
+    K5 (``q_offset``), the inputs of each from ``next_inputs(i, logits)``;
+    K5's launches by kernel per step, the prefill's and the decode's
+    walls (host clock between device synchronisations), the greedy
+    tokens (b, gen)."""
+    from repro_torch.kernels.flash_attn import flash_attn as k5
+    b, P = next(iter(prefill.values())).shape[0], _inputs_len(prefill)
+    caches = lm.caches(b, P + gen - 1)
+    per_step, toks = [], []
+    _k5_zero(k5)
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x, start = prefill, 0
+        for i in range(gen):
+            before = dict(k5.launches_by_kernel)
+            lg, _ = lm.serve_step(caches, x, q_offset=start)
+            per_step.append({k: c - before[k]
+                             for k, c in k5.launches_by_kernel.items()})
+            toks.append(lg[:, -1].argmax(-1))
+            start += _inputs_len(x)
+            if i == 0:
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+            if i < gen - 1:
+                x = next_inputs(i, lg)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    assert torch.isfinite(lg).all()
+    row = dict(prefill_s=t1 - t0, decode_s=t2 - t1,
+               decode_ms_per_step=(t2 - t1) / (gen - 1) * 1e3,
+               tok_per_s=b * gen / (t2 - t0))
+    return row, per_step, torch.stack(toks, 1)
+
+
+def _run_musicgen():
+    """musicgen-medium at all 48 layers (bf16): ``loss`` and its backward
+    at (4, 1024) on seeded frame embeddings; ``sample_stats`` under
+    ``"pallas"`` at (8, 1024) (K1 once, K5 48 on mma: hd 64) against
+    ``"fused"``; serve of 8 × 1024 embeddings and 16 decode steps of
+    embeddings (K5 mma in every layer of each), then phase 16's token
+    check on the prefill and 4 of the steps (no (d): the steps' inputs are
+    not the greedy tokens)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ce_score import ce_score as k1k4
+    from repro_torch.kernels.flash_attn import flash_attn as k5
+    from repro_torch.models.lm import LM
+    cfg = get_config("musicgen-medium")
+    n = cfg.n_layers
+    log(f"[musicgen] musicgen-medium: {cfg.param_count() / 1e9:.3f} B "
+        f"parameters by counting, bf16, 48 layers, 24/24 heads of 64, GELU "
+        f"d_ff 6144, vocab 2048, frame embeddings in; no cut of width, "
+        f"depth or vocab (the reference has no data source for this mode: "
+        f"seeded standard-normal embeddings)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm = LM(cfg, "cuda")
+    rec = {}
+    batch = _mode_batch(cfg, 4, 1024, seed=32)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss, m = lm.loss(batch)
+    loss.backward()
+    torch.cuda.synchronize()
+    rec["loss_backward"] = dict(
+        shape=[4, 1024], s=time.perf_counter() - t0,
+        loss=float(loss.detach()), ce=float(m["ce"].detach()),
+        peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+        grads_finite=all(bool(torch.isfinite(p.grad).all())
+                         for p in lm.parameters()))
+    assert rec["loss_backward"]["grads_finite"] and math.isfinite(
+        rec["loss_backward"]["loss"]), rec
+    lm.zero_grad(set_to_none=True)
+    del loss, m, batch
+    batch = _mode_batch(cfg, 8, 1024, seed=33)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _k5_zero(k5)
+    k1k4.ce_score_launches = k1k4.launches = 0
+    t0 = time.perf_counter()
+    lp, sp = lm.sample_stats(batch, score_impl="pallas")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1, k5_by = k1k4.ce_score_launches, dict(k5.launches_by_kernel)
+    assert (k1, k1k4.launches) == (1, 0) and k5_by == _k5_counts(mma=n), \
+        (k1, k5_by)
+    lf, sf = lm.sample_stats(batch, score_impl="fused")
+    np.testing.assert_allclose(lp.cpu().numpy(), lf.cpu().numpy(),
+                               rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(sp.cpu().numpy(), sf.cpu().numpy(),
+                               rtol=1e-4, atol=1e-4)
+    rec["score"] = dict(shape=[8, 1024], wall_s=wall, k1_launches=k1,
+                        k5_launches_by_kernel=k5_by,
+                        peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                        max_score_diff_vs_fused=float(
+                            (sp - sf).abs().max()))
+    del batch, lp, sp, lf, sf
+    kw = MUSICGEN_SERVE
+    steps = _mode_steps(cfg, kw["batch"], kw["prompt_len"], kw["gen"] - 1,
+                        seed=34)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    row, per_step, _ = _serve_timed(lm, steps[0], kw["gen"],
+                                    lambda i, lg: steps[i + 1])
+    assert per_step == [_k5_counts(mma=n)] * kw["gen"], per_step
+    row.update(peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               k5_launches=sum(sum(p.values()) for p in per_step),
+               k5_launches_by_kernel=_k5_counts(mma=n * kw["gen"]),
+               **kw)
+    rec["serve"] = row
+    log("[musicgen] " + json.dumps(rec))
+    rec["serve_vs_plain"] = _route_check(lm, None, None, 4, n,
+                                         "musicgen serve",
+                                         batches=steps[:5])
+    del lm, steps
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _run_llava():
+    """llava-next-34b at full width and the depth ``_fit_depth`` allows
+    for (8, 1024) scoring: ``sample_stats`` under ``"pallas"`` of 8 rows of
+    576 image embeddings + 448 tokens (K1 once, K5 once a layer on wgmma)
+    against ``"fused"``; serve of the same prefill and 15 greedy text
+    decode steps (wgmma in the prefill, mma in decode); phase 16's token
+    check on 2 of the rows (the plain route's f32 attention scores of all
+    8 would not fit beside the weights), the prefill and 4 steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ce_score import ce_score as k1k4
+    from repro_torch.kernels.flash_attn import flash_attn as k5
+    from repro_torch.models.lm import LM
+    full = get_config("llava-next-34b")
+    cfg, need, total = _fit_depth(full, 8, 1024)
+    n = cfg.n_layers
+    cut = ("no cut of depth" if n == full.n_layers else
+           f"depth {full.n_layers} -> {n} layers")
+    log(f"[llava] llava-next-34b: {full.param_count() / 1e9:.3f} B "
+        f"parameters by counting ({2 * full.param_count() / 1e9:.1f} GB in "
+        f"bf16); {cut}: by counting, {need / 1e9:.1f} GB of weights and "
+        f"the score's largest tensors leave {(total - need) / 1e9:.1f} GB of "
+        f"the card's {total / 1e9:.1f} GB free (at least 6); inputs 8 rows "
+        f"of {full.n_prefix_embeds} seeded image embeddings (the reference's "
+        f"frontend is a stub) + 448 tokens; width and vocab are not cut")
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm = LM(cfg, "cuda")
+    batch = _mode_batch(cfg, 8, 1024, seed=35)
+    rec = dict(n_layers=n, counted_gb=need / 1e9, card_gb=total / 1e9)
+    torch.cuda.reset_peak_memory_stats()
+    _k5_zero(k5)
+    k1k4.ce_score_launches = k1k4.launches = 0
+    t0 = time.perf_counter()
+    lp, sp = lm.sample_stats(batch, score_impl="pallas")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1, k5_by = k1k4.ce_score_launches, dict(k5.launches_by_kernel)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    assert (k1, k1k4.launches) == (1, 0) and k5_by == _k5_counts(wgmma=n), \
+        (k1, k5_by)
+    lf, sf = lm.sample_stats(batch, score_impl="fused")
+    np.testing.assert_allclose(lp.cpu().numpy(), lf.cpu().numpy(),
+                               rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(sp.cpu().numpy(), sf.cpu().numpy(),
+                               rtol=1e-4, atol=1e-4)
+    rec["score"] = dict(shape=[8, 576, 448], wall_s=wall, k1_launches=k1,
+                        k5_launches_by_kernel=k5_by, peak_gib=peak,
+                        max_score_diff_vs_fused=float(
+                            (sp - sf).abs().max()))
+    prefill = {k: batch[k] for k in ("tokens", "image_embeds")}
+    del batch, lp, sp, lf, sf
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = LLAVA_SERVE["gen"]
+    row, per_step, toks = _serve_timed(
+        lm, prefill, gen, lambda i, lg: {"tokens": lg[:, -1].argmax(-1)[:,
+                                                                        None]})
+    assert per_step == [_k5_counts(wgmma=n)] + \
+        [_k5_counts(mma=n)] * (gen - 1), per_step
+    row.update(peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               k5_launches=sum(sum(p.values()) for p in per_step),
+               k5_launches_by_kernel=_k5_counts(wgmma=n, mma=n * (gen - 1)),
+               **LLAVA_SERVE)
+    rec["serve"] = row
+    log("[llava] " + json.dumps(rec))
+    two = {k: v[:2] for k, v in prefill.items()}
+    rec["serve_vs_plain"] = _route_check(
+        lm, None, toks[:2], 4, n, "llava serve",
+        batches=[two] + [{"tokens": toks[:2, i:i + 1]} for i in range(4)])
+    del lm, prefill, two, toks
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def run_input_modes():
+    """Phase 30: reduced musicgen and llava on the card against the CPU;
+    musicgen-medium at full size; llava-next-34b at full width."""
+    res = {arch: _check_mode_reduced(arch)
+           for arch in ("musicgen-medium", "llava-next-34b")}
+    res["musicgen-medium full"] = _run_musicgen()
+    res["llava-next-34b full"] = _run_llava()
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 31: the MoE FFN (granite-moe-3b-a800m)
+# ---------------------------------------------------------------------------
+def _moe_meter():
+    """A hook that records, from forward hooks on every ``MoE`` layer of the
+    loop's model, each forward's capacity drops, routed choices and aux:
+    the training forward's (not its recompute under ``remat``) and the
+    forward-only scoring's, summed per step (one device sync at each step's
+    end)."""
+    from repro_torch.api import Hook
+    from repro_torch.models.moe import MoE
+
+    def in_backward():
+        # the recompute of a checkpointed block runs inside the backward's
+        # graph task
+        return torch._C._current_graph_task_id() != -1
+
+    class Meter(Hook):
+        def __init__(self):
+            self.calls = {"train": [], "score": []}
+            self.handles = []
+            self.last = None
+
+        def on_loop_start(self, loop, start, steps):
+            def hook(mod, args, out):
+                if torch.is_inference_mode_enabled() or \
+                        not torch.is_grad_enabled():
+                    kind = "score"
+                elif in_backward():
+                    return
+                else:
+                    kind = "train"
+                x = args[0]
+                # the drops from the layer's routing of the same input, run
+                # again here (the model keeps no count of its own)
+                with torch.no_grad():
+                    drops = (~mod.route(x)["keep"]).sum()
+                self.calls[kind].append((drops, out[1].detach(),
+                                         x.shape[0] * x.shape[1]
+                                         * mod.cfg.moe.top_k))
+            self.handles = [m.register_forward_hook(hook)
+                            for m in loop.exp.lm.modules()
+                            if isinstance(m, MoE)]
+
+        def on_step_end(self, loop, step, m):
+            row = {}
+            for kind, calls in self.calls.items():
+                if not calls:
+                    row[kind] = None
+                    continue
+                drops = int(torch.stack([c[0] for c in calls]).sum())
+                choices = sum(c[2] for c in calls)
+                aux = float(torch.stack([c[1] for c in calls]).sum())
+                row[kind] = dict(forwards=len(calls), drops=drops,
+                                 choices=choices, drop_rate=drops / choices,
+                                 aux_sum=aux)
+                calls.clear()
+            self.last = row
+
+        def on_loop_end(self, loop, state, history):
+            for h in self.handles:
+                h.remove()
+            self.handles = []
+    return Meter()
+
+
+def _check_granite_reduced():
+    """``reduced(granite-moe-3b-a800m, repeats=2)`` (f32, 4 of 48 experts
+    routed, top 2) on the card against the CPU from the same params: the
+    forward-only logits and aux (K5 f32 in each layer), and ``prod``'s
+    steps (plans equal, losses to 1e-3)."""
+    from repro_torch.api import Experiment, build_run
+    from repro_torch.checkpoint import interop
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.kernels.flash_attn import flash_attn as k5
+    from repro_torch.models.lm import LM
+    cfg = reduced(get_config("granite-moe-3b-a800m"), repeats=2)
+    gpu = LM(cfg, "cuda")
+    cpu = interop.params_from_numpy(interop.params_to_numpy(gpu), cfg, "cpu")
+    toks = torch.from_numpy(np.random.default_rng(31).integers(
+        0, cfg.vocab_size, (2, 600)))
+    _k5_zero(k5)
+    with torch.inference_mode():
+        (lg, ag), (lc, ac) = gpu.logits({"tokens": toks.cuda()}), \
+            cpu.logits({"tokens": toks})
+    assert k5.launches_by_kernel == _k5_counts(f32=cfg.n_layers), \
+        k5.launches_by_kernel
+    res = dict(forward_max_abs_err=float((lg.cpu() - lc).abs().max()),
+               aux_card_cpu=[float(ag), float(ac)])
+    assert res["forward_max_abs_err"] < 1e-3 and abs(float(ag) - float(ac)) \
+        < 1e-3, res
+    run = build_run(model=cfg, preset="prod", overrides={
+        "shape.seq_len": 96, "shape.global_batch": 4, "steps": 3,
+        "obs.enabled": False, "imp.score_dtype": "float32",
+        "imp.tau_th": 1.01})
+    ge, ce = Experiment(run), Experiment(run, device="cpu")
+    interop.load_params(ce.lm, interop.params_to_numpy(ge.lm))
+    hg, hc = _plans_hook(), _plans_hook()
+    _, mg = ge.fit(hooks=[hg])
+    _, mc = ce.fit(hooks=[hc])
+    assert hg.gids == hc.gids, (hg.gids, hc.gids)
+    for a, b in zip(mg, mc):
+        assert math.isfinite(a["loss"]) and abs(a["loss"] - b["loss"]) < 1e-3
+    res["prod_losses"] = [[a["loss"], b["loss"]] for a, b in zip(mg, mc)]
+    log(f"[granite reduced] {cfg.name}: forward (tokens 2 x 600: 2 dispatch "
+        f"groups; K5 {cfg.n_layers} f32) " + json.dumps(res)
+        + f"; prod plans equal {hg.gids}")
+    del gpu, cpu, ge, ce
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _fit_train_depth(cfg, free_bytes=12e9):
+    """The most repeats of ``cfg``'s one segment whose training state by
+    ``counting`` (16 bytes a parameter: bf16 params and grads, f32 master,
+    m and v) leaves ``free_bytes`` of the card for activations, the MoE's
+    dispatch buffers and the pool's logits. Returns (cut cfg, bytes)."""
+    total = torch.cuda.get_device_properties(0).total_memory
+    for r in range(cfg.segments[0].repeats, 0, -1):
+        c = _cut(cfg, r)
+        need = 16 * c.param_count()
+        if need + free_bytes <= total:
+            return c, need, total
+    raise RuntimeError(f"{cfg.name} does not train on one card")
+
+
+def run_granite(out):
+    """Phase 31: reduced granite card against CPU; granite-moe-3b-a800m
+    under ``prod`` (seq 1024, batch 4, pool 12; 4 steps, step 2 profiled):
+    K4 8 and K5 once a layer (mma: hd 64) a step, each step's capacity
+    drops and aux (``_moe_meter``), walls, peak; then ``score`` at (8,
+    1024) under ``"pallas"`` (K1 once, K5 once a layer)."""
+    import repro_torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ce_score import ce_score as k4
+    from repro_torch.kernels.flash_attn import flash_attn as k5
+    res = {"reduced": _check_granite_reduced()}
+    full = get_config("granite-moe-3b-a800m")
+    cfg, need, total = _fit_train_depth(full)
+    n = cfg.n_layers
+    cut = ("no cut of depth" if n == full.n_layers else
+           f"depth {full.n_layers} -> {n} layers")
+    log(f"[granite] granite-moe-3b-a800m, preset prod, overrides {CELL_A}; "
+        f"{full.param_count() / 1e9:.3f} B parameters by counting "
+        f"({full.active_param_count() / 1e9:.3f} B active), 40 experts "
+        f"padded to 48, top 8, d_expert 512, capacity factor 1.25; {cut}: "
+        f"by counting, the state ({need / 1e9:.1f} GB: bf16 params and "
+        f"grads, f32 master, m, v) leaves {(total - need) / 1e9:.1f} GB of "
+        f"the card's {total / 1e9:.1f} GB (at least 12); cuts from prod: "
+        f"seq_len 4096 -> 1024, global_batch 256 -> {BATCH}, steps 1000 -> "
+        f"{STEPS}; telemetry off, no checkpoints. Width, experts and vocab "
+        f"(49155) are not cut.")
+    gc.collect()
+    torch.cuda.empty_cache()
+    meter = _moe_meter()
+    hook = _step_log("granite", extra=lambda loop, m: dict(
+        _prune_row(loop, m), moe=meter.last))
+    k4.launches = 0
+    _k5_zero(k5)
+    t0 = time.perf_counter()
+    _, history = repro_torch.train(cfg, preset="prod", overrides=CELL_A,
+                                   hooks=[meter, hook])
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    k4n, k5_by = k4.launches, dict(k5.launches_by_kernel)
+    assert len(history) == STEPS
+    assert all(math.isfinite(h["loss"]) for h in history), history
+    assert k4n == 8 * STEPS, k4n
+    assert k5_by == _k5_counts(mma=n * STEPS), k5_by
+    for r in hook.rows:
+        assert r["moe"]["train"]["forwards"] == n, r["moe"]
+        assert math.isfinite(r["moe"]["train"]["aux_sum"]), r["moe"]
+    log(f"[granite] {STEPS} steps in {total_s:.1f} s (model build "
+        f"included); K4 {k4n} ({k4n / STEPS:g} a step), K5 {k5_by}")
+    breakdown = step_breakdown(hook.prof, hook.rows, out, tag="granite",
+                               fname="profile_granite_step")
+    res["train"] = dict(n_layers=n, counted_state_gb=need / 1e9,
+                        k4_launches=k4n, k5_launches_by_kernel=k5_by,
+                        total_s=total_s, steps=hook.rows,
+                        profile=breakdown)
+    gc.collect()
+    torch.cuda.empty_cache()
+    k1, row = _score_run(
+        "granite-moe-3b-a800m", "granite score", full.n_layers, "mma",
+        f"{full.param_count() / 1e9:.3f} B parameters by counting "
+        f"({2 * full.param_count() / 1e9:.1f} GB in bf16); cuts from prod: "
+        "seq_len 4096 -> 1024, global_batch 256 -> 8; width, depth (32 "
+        "layers), experts and vocab are not cut")
+    res["score"] = dict(row, k1_launches=k1)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 18c: K5's mma kernel at bf16 hd 64 (granite's and musicgen's path)
+# ---------------------------------------------------------------------------
+def time_k5_hd64(gen):
+    """Phase 18c: K5 at bf16 hd 64, where the dispatch rule takes the
+    ``mma.sync`` kernel: granite's pool (12, 1024, 24/8) and musicgen's
+    prefill (8, 1024, 24/24), causal, by CUDA events (three rounds of 50
+    calls in turns, the median) beside SDPA's default and each fused
+    backend that runs (k, v expanded); musicgen's decode (8, 1, 24/24)
+    at position 1039 over a 1040-slot cache by device time
+    (``_device_ms``), bounded by the cache read once."""
+    from repro_torch.kernels.flash_attn import flash_attn as k5
+    from repro_torch.kernels.flash_attn.ops import flash_attention
+    hd, res = 64, {}
+    for name, b, hq, hkv in (("granite pool (12, 1024)", 12, 24, 8),
+                             ("musicgen prefill (8, 1024)", 8, 24, 24)):
+        sq = 1024
+        q, k, v = _k5_inputs(b, sq, sq, hq, hkv, hd, torch.bfloat16, gen)
+        assert k5.plan(q, k, v) == "mma"
+        # the timed inputs' output against the f32 plain version first
+        got = flash_attention(q, k, v)
+        want = _k5_plain(q.float(), k.float(), v.float())
+        err, rel = float((got.float() - want).abs().max()), \
+            _row_rel_err(got, want)
+        torch.testing.assert_close(got.float(), want,
+                                   rtol=K5_TOL[torch.bfloat16],
+                                   atol=K5_TOL[torch.bfloat16])
+        assert rel <= K5_ROW_REL[torch.bfloat16], (name, rel)
+        assert torch.isfinite(got).all(), name
+        del got, want
+        runs = {"mma": lambda: flash_attention(q, k, v),
+                "sdpa": _sdpa(q, k, v, True),
+                **{f"sdpa {n}": f for n, f in
+                   _sdpa_backends(q, k, v, True).items()}}
+        ev = {key: [] for key in runs}
+        for r in range(3):
+            for key in (list(runs) if r % 2 == 0 else list(runs)[::-1]):
+                ev[key].append(_time(runs[key], 50))
+        med = {key: sorted(ts)[1] for key, ts in ev.items()}
+        ms = med["mma"]
+        by_backend = {key[5:]: t for key, t in med.items()
+                      if key.startswith("sdpa ")}
+        n_ops = _attn_flops(b, hq, hd, sq, sq, 0)
+        n_bytes = 2 * (2 * b * sq * hq * hd + 2 * b * sq * hkv * hd)
+        bound_ms, by = _bound(n_bytes, n_ops, BF16_FLOPS_PER_S)
+        res[name] = dict(
+            shape=f"q ({b},{sq},{hq},{hd}), kv ({b},{sq},{hkv},{hd}) bf16, "
+                  "causal",
+            kernel="mma", ms=ms, rounds_ms=ev, max_abs_err=err,
+            max_row_rel_err=rel,
+            plain_ms=_time(lambda: _k5_plain(q, k, v), 2),
+            library_ms=med["sdpa"], library_ms_by_backend=by_backend,
+            bound_ms=bound_ms, bound_by=by, flop=n_ops,
+            tflops=n_ops / (ms * 1e-3) / 1e12,
+            share_of_bound=bound_ms / ms,
+            sdpa_tflops={n: n_ops / (t * 1e-3) / 1e12
+                         for n, t in by_backend.items()},
+            timed_by="CUDA events, the median of 3 rounds of 50 calls, in "
+                     "turns")
+        del q, k, v, runs
+        torch.cuda.empty_cache()
+    cap = MUSICGEN_SERVE["prompt_len"] + MUSICGEN_SERVE["gen"]
+    off = cap - 1
+    q, k, v = _k5_inputs(8, 1, cap, 24, 24, hd, torch.bfloat16, gen)
+    assert k5.plan(q, k, v) == "mma"
+    ms = _device_ms(lambda: flash_attention(q, k, v, q_offset=off), 50)
+    n_bytes = 2 * (2 * 8 * 24 * hd + 2 * 8 * cap * 24 * hd)
+    bound_ms, by = _bound(n_bytes, 4 * 8 * 24 * hd * cap, BF16_FLOPS_PER_S)
+    res["musicgen decode"] = dict(
+        shape=f"q (8,1,24,{hd}) at {off}, kv (8,{cap},24,{hd}), bf16",
+        kernel="mma", ms=ms,
+        plain_ms=_device_ms(lambda: _k5_plain(q, k, v, rows=8,
+                                              q_offset=off), 10),
+        library_ms=_device_ms(_sdpa(q, k, v, False), 50),
+        bound_ms=bound_ms, bound_by=by, share_of_bound=bound_ms / ms,
+        timed_by=DEVICE_TIMED,
+        event_loop_ms=_time(lambda: flash_attention(q, k, v, q_offset=off),
+                            100))
+    del q, k, v
+    torch.cuda.empty_cache()
+    for name, r in res.items():
+        held = (f" (max |kernel - f32 plain| {r['max_abs_err']:.3e}, worst "
+                f"row {r['max_row_rel_err']:.3e})"
+                if "max_abs_err" in r else "")
+        log(f"[timing] K5 hd 64 {name} {r['shape']}: mma kernel{held} "
+            f"{r['ms']:.4f} ms/launch ({r['share_of_bound']:.3f} of the "
+            f"bound {r['bound_ms']:.4f} ms, {r['bound_by']}), plain "
+            f"{r['plain_ms']:.4f} ms, scaled_dot_product_attention "
+            f"{r['library_ms']:.4f} ms"
+            + ("; SDPA by backend " + ", ".join(
+                f"{n} {t:.4f} ms" for n, t in
+                r["library_ms_by_backend"].items())
+               if "library_ms_by_backend" in r else "")
+            + f"; timed by {r['timed_by']}")
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py needs a CUDA GPU; torch finds none")
@@ -3552,8 +4436,10 @@ def main():
                     source=csrc.format("ce_score", "ce_score_block.cu"),
                     replaces="src/repro/kernels/ce_score/ce_score.py:144",
                     held_by="phase 3 (K4), 4 (prune), 24 (gemma3 "
-                            "reduced, card against CPU) and 27/28 (gemma3 "
-                            "and lm-100m steps, losses finite)"),
+                            "reduced, card against CPU), 27/28 (gemma3 "
+                            "and lm-100m steps, losses finite) and 31 "
+                            "(reduced granite card against CPU; granite's "
+                            "steps at V 49155, losses finite)"),
                dict(name="race_keys", route="cuda",
                     builds=[(k6.LIB, k6.SOURCES)],
                     source=csrc.format("topk_keys", "race_keys.cu"),
@@ -3574,15 +4460,19 @@ def main():
                             "against the plain route), 23 (hd 256: the "
                             "wgmma256, decode and mma kernels; windows), 24 "
                             "(gemma3 reduced, card against CPU), 25 (gemma3 "
-                            "serve, as 16) and 26/28 (the scores against "
-                            "'fused')"),
+                            "serve, as 16), 26/28 (the scores against "
+                            "'fused'), 30 (reduced musicgen and llava card "
+                            "against CPU; musicgen's and llava's serve as "
+                            "16, their scores against 'fused') and 31 "
+                            "(reduced granite; granite's score)"),
                dict(name="ce_score", route="cuda",
                     builds=[(k1k4.LIB_K1, k1k4.SOURCES_K1)],
                     source=csrc.format("ce_score", "ce_score.cu"),
                     replaces="src/repro/kernels/ce_score/ce_score.py:198",
                     held_by="phase 14 (K1), 17 (cell D), 26 (gemma3, V "
-                            "262144) and 28 (internlm2-20b, yi-34b), each "
-                            "against 'fused'"),
+                            "262144), 28 (internlm2-20b, yi-34b), 30 "
+                            "(musicgen, V 2048; llava, V 64000) and 31 "
+                            "(granite, V 49155), each against 'fused'"),
                dict(name="pool_select (K2 row_score)", route="cuda",
                     builds=[(fp.LIB, fp.SOURCES)],
                     source=csrc.format("fused_presample", "pool_select.cu"),
@@ -3640,6 +4530,7 @@ def main():
     k1_launches, cell_d = phase("17 cell D", run_cell_d)
     k5_t = phase("18a K5 timing", time_k5, gen)
     k1_t = phase("18b K1 timing", time_k1, gen)
+    k5_64_t = phase("18c K5 hd 64 timing", time_k5_hd64, gen)
     ps = phase("19 pool_select", check_pool_select, gen)
     tiny_presample = phase("20 presample lm-tiny", check_presample_lm_tiny)
     e_rows, e_op, e_total, e_profile, k5_cell_e = phase("21 cell E",
@@ -3655,8 +4546,13 @@ def main():
         "from prod: seq_len 4096 -> 1024, global_batch 256 -> 8; width, depth "
         "(48 layers: 40 local, 8 global) and vocab (262144) are not cut")
     gemma_train = phase("27 gemma3 train", run_gemma_train, out)
-    dense = phase("28 dense configs", run_dense_configs)
+    dense, lm100 = phase("28 dense configs", run_dense_configs)
+    var = phase("29 variance", run_variance, lm100)
+    del lm100
+    modes = phase("30 input modes", run_input_modes)
+    granite = phase("31 granite", run_granite, out)
     k5_cases.update(k5_256)
+    mg, lv = modes["musicgen-medium full"], modes["llava-next-34b full"]
 
     def entry(i, **kw):
         k = kernels[i]
@@ -3675,7 +4571,17 @@ def main():
                       dense["lm-100m"]["k5_launches_by_kernel"],
                   "internlm2-20b score":
                       dense["internlm2-20b"]["k5_launches_by_kernel"],
-                  "yi-34b score": dense["yi-34b"]["k5_launches_by_kernel"]}
+                  "yi-34b score": dense["yi-34b"]["k5_launches_by_kernel"],
+                  "lm-100m variance (sample_stats)":
+                      var["lm-100m"]["k5_launches_by_kernel"],
+                  "musicgen score": mg["score"]["k5_launches_by_kernel"],
+                  "musicgen serve": mg["serve"]["k5_launches_by_kernel"],
+                  "llava score": lv["score"]["k5_launches_by_kernel"],
+                  "llava serve": lv["serve"]["k5_launches_by_kernel"],
+                  "granite train steps":
+                      granite["train"]["k5_launches_by_kernel"],
+                  "granite score":
+                      granite["score"]["k5_launches_by_kernel"]}
 
     def k5_paths(kernel):
         return {path: by[kernel] for path, by in k5_by_path.items()
@@ -3703,7 +4609,9 @@ def main():
                   "cell A steps": launches,
                   "cell A resumed steps": resume["k4_launches"],
                   "gemma3 train steps": gemma_train["k4_launches"],
-                  "lm-100m train steps": dense["lm-100m"]["k4_launches"]}),
+                  "lm-100m train steps": dense["lm-100m"]["k4_launches"],
+                  "granite train steps (V 49155)":
+                      granite["train"]["k4_launches"]}),
         entry(1, launches=k6_launches, max_abs_err=k6_abs,
               max_rel_err=k6_rel, ms=k6_t[0], plain_ms=k6_t[1],
               bound_ms=k6_t[2], bound_by=k6_t[3], library_ms=None,
@@ -3814,11 +4722,14 @@ def main():
                        library_ms=dec["library_ms"],
                        library_ms_by_backend=None,
                        by_shape_hd256=k5_256_t, ptxas_hd256=ptxas_256,
+                       by_shape_hd64=k5_64_t,
                        timed_at="cell C decode (device time); on the "
                                 "wgmma shapes as mma_ms in by_shape; "
                                 "gemma3's prefill and its decode (mma_ms) "
                                 "at hd 256 in by_shape_hd256; cell I's f32 "
-                                "pool scoring as flash_f32's mma_ms")]),
+                                "pool scoring as flash_f32's mma_ms; bf16 hd "
+                                "64 (granite's pool, musicgen's prefill and "
+                                "decode) in by_shape_hd64")]),
         entry(3, launches=k1_launches, max_abs_err=k1_err, ms=k1_t[0],
               plain_ms=k1_t[1], bound_ms=k1_t[2], bound_by=k1_t[3],
               library_ms=None, launches_by_path={
@@ -3826,7 +4737,10 @@ def main():
                   "cell E fused_presample op": e_op["k1"],
                   "gemma3 score": k1_gemma,
                   "internlm2-20b score": dense["internlm2-20b"]["k1_launches"],
-                  "yi-34b score": dense["yi-34b"]["k1_launches"]}),
+                  "yi-34b score": dense["yi-34b"]["k1_launches"],
+                  "musicgen score (V 2048)": mg["score"]["k1_launches"],
+                  "llava score (V 64000)": lv["score"]["k1_launches"],
+                  "granite score (V 49155)": granite["score"]["k1_launches"]}),
         entry(4, launches=e_op["pool_select"],
               max_abs_err=ps["k2_max_abs_err"],
               max_rel_err=ps["k2_max_rel_err"], **ps_cell_e,
@@ -3853,6 +4767,8 @@ def main():
          "gemma_reduced": gemma_tiny, "gemma_serve": gemma_serve,
          "gemma_serve_vs_plain": gemma_cmp, "gemma_score": gemma_score,
          "gemma_train": gemma_train, "dense_configs": dense,
+         "variance": var, "input_modes": modes, "granite": granite,
+         "k5_hd64_timing": k5_64_t,
          "phase_seconds": seconds,
          **line, **ok}, indent=1))
     print(smi)

@@ -1,9 +1,10 @@
 """Architecture registry: ``get_config(arch_id)`` / ``--arch <id>``.
 
 The port carries the architectures its slices run, in the reference's
-order: every dense-attention architecture with token input (global and
-sliding-window GQA). The others wait for the slice that ports their
-block kinds (MoE, MLA, SSM, xLSTM) or input modes.
+order: every architecture whose blocks are global or sliding-window GQA,
+in any input mode (tokens, frame embeddings, an image prefix), with a
+dense or an MoE FFN. The others wait for the slice that ports their
+block kinds (MLA, SSM, xLSTM).
 """
 from __future__ import annotations
 
@@ -14,10 +15,13 @@ from repro_torch.configs.base import (ISConfig, ModelConfig, OptimConfig,
                                       Segment, ShapeConfig, reduced)
 
 ARCHS = (
+    "musicgen-medium",
     "internlm2-20b",
     "yi-34b",
     "llama3.2-3b",
     "gemma3-12b",
+    "granite-moe-3b-a800m",
+    "llava-next-34b",
     "lm-100m",
     "lm-tiny",
 )

@@ -42,7 +42,7 @@ import dataclasses
 import torch
 
 from repro_torch.core import importance as imp
-from repro_torch.models.lm import LM, _valid_mask, token_stats
+from repro_torch.models.lm import LM, _valid_mask, pad_labels, token_stats
 
 
 def train_state_init(lm: LM, optimizer, seed: int = 0):
@@ -68,10 +68,11 @@ def _batch_rows(batch, idx):
 
 def _forward_backward(lm: LM, batch, *, remat, score_impl):
     """One forward + backward over ``lm``'s own parameters: the weighted
-    loss, per-sample losses and scores (detached) and the grads (keyed by
-    parameter name)."""
-    logits = lm(batch, remat=remat)
-    labels = batch["labels"]
+    loss plus the router aux (what is differentiated), per-sample losses
+    and scores (detached) and the grads (keyed by parameter name). An
+    image prefix's positions carry no loss (``pad_labels``)."""
+    logits, aux = lm.logits(batch, remat=remat)
+    labels = pad_labels(lm.cfg, logits, batch["labels"])
     mask = _valid_mask(labels)
     ce, g2 = token_stats(logits, torch.clamp(labels, min=0), impl=score_impl)
     denom = torch.clamp(mask.sum(-1), min=1.0)
@@ -79,6 +80,7 @@ def _forward_backward(lm: LM, batch, *, remat, score_impl):
     scores = torch.sqrt(torch.clamp((g2.detach() * mask).sum(-1), min=1e-20))
     w = batch.get("weights")
     loss = (per_sample * w).mean() if w is not None else per_sample.mean()
+    loss = loss + aux
     del logits, ce, g2
     params = dict(lm.named_parameters())
     for p in params.values():

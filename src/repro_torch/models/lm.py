@@ -25,6 +25,16 @@ def _valid_mask(labels):
     return (labels >= 0).float()
 
 
+def pad_labels(cfg, logits, labels):
+    """Labels for ``logits``: an image prefix (``input_mode="tokens+image"``)
+    puts ``logits.shape[1] − labels.shape[1]`` positions before the text,
+    which carry no loss (label −1), as the reference pads them."""
+    pad = logits.shape[1] - labels.shape[1]
+    if cfg.input_mode == "tokens+image" and pad:
+        labels = F.pad(labels, (pad, 0), value=-1)
+    return labels
+
+
 # ---------------------------------------------------------------------------
 # per-token CE statistics (three implementations)
 # ---------------------------------------------------------------------------
@@ -117,9 +127,10 @@ class LM(Transformer):
 
     # -- forward ------------------------------------------------------------
     def hidden(self, batch, *, remat=False, impl="auto"):
-        """Without ``batch["positions"]`` every row sits at 0..s−1, which is
-        the flash kernel's contract (``q_offset=0``); given positions take
-        the plain attention paths."""
+        """(hidden, aux). Without ``batch["positions"]`` every row sits at
+        0..s−1 (an image prefix and its text together), which is the flash
+        kernel's contract (``q_offset=0``); given positions take the plain
+        attention paths."""
         x = self.embed_inputs(batch)
         b, s = x.shape[:2]
         positions = batch.get("positions")
@@ -130,8 +141,13 @@ class LM(Transformer):
         return self.apply_stack(x, positions, remat=remat, impl=impl,
                                 q_offset=q_offset)
 
+    def logits(self, batch, *, remat=False, impl="auto"):
+        """(logits, aux): the router aux summed over the layers."""
+        h, aux = self.hidden(batch, remat=remat, impl=impl)
+        return self.logits_fn(h), aux
+
     def forward(self, batch, remat=False, impl="auto"):
-        return self.logits_fn(self.hidden(batch, remat=remat, impl=impl))
+        return self.logits(batch, remat=remat, impl=impl)[0]
 
     def _score_logits(self, batch, params, score_dtype, impl):
         """Forward-only logits over ``params`` (default: the module's own)
@@ -148,17 +164,19 @@ class LM(Transformer):
 
     # -- training loss ------------------------------------------------------
     def loss(self, batch, *, remat=True, impl="auto", score_impl="fused"):
-        """Mean (optionally per-sample-weighted) CE. Returns (loss,
-        metrics); ``batch["weights"]`` (b,) are the unbiasedness weights."""
-        logits = self(batch, remat=remat, impl=impl)
-        labels = batch["labels"]
+        """Mean (optionally per-sample-weighted) CE + router aux. Returns
+        (loss, metrics); ``batch["weights"]`` (b,) are the unbiasedness
+        weights."""
+        logits, aux = self.logits(batch, remat=remat, impl=impl)
+        labels = pad_labels(self.cfg, logits, batch["labels"])
         mask = _valid_mask(labels)
         ce, _ = token_stats(logits, torch.clamp(labels, min=0),
                             impl=score_impl)
         per_sample = (ce * mask).sum(-1) / torch.clamp(mask.sum(-1), min=1.0)
         w = batch.get("weights")
         loss = per_sample.mean() if w is None else (per_sample * w).mean()
-        return loss, {"ce": per_sample.mean(), "tokens": mask.sum()}
+        return loss + aux, {"ce": per_sample.mean(), "aux": aux,
+                            "tokens": mask.sum()}
 
     # -- per-sample loss + importance score (forward only) -------------------
     def sample_stats(self, batch, *, params=None, score_impl="fused",
@@ -167,7 +185,7 @@ class LM(Transformer):
         no gradients: the paper's scoring phase (Algorithm 1, line 7)."""
         with torch.inference_mode():
             logits = self._score_logits(batch, params, score_dtype, impl)
-            labels = batch["labels"]
+            labels = pad_labels(self.cfg, logits, batch["labels"])
             mask = _valid_mask(labels)
             ce, g2 = token_stats(logits, torch.clamp(labels, min=0),
                                  impl=score_impl)
@@ -189,17 +207,20 @@ class LM(Transformer):
         with torch.inference_mode():
             logits = self._score_logits(batch, params, score_dtype, impl)
             scores, alive, loss_ps, stats = pruned_pool_score(
-                logits, batch["labels"], ctx, k=k)
+                logits, pad_labels(self.cfg, logits, batch["labels"]), ctx,
+                k=k)
         return loss_ps, scores, alive, stats
 
     # -- serving ------------------------------------------------------------
     def caches(self, batch_size, max_len, dtype=None):
         """Empty decode caches on the model's device, one per layer."""
         return caches_init(self.cfg, batch_size, max_len,
-                           dtype or dtype_of(self.cfg), self.embed.device)
+                           dtype or dtype_of(self.cfg),
+                           self.final_norm.scale.device)
 
     def serve_step(self, caches, batch, *, impl="auto", q_offset=None):
-        """One serve step: ``batch["tokens"]`` (b, s) new tokens at
+        """One serve step: ``batch["tokens"]`` (b, s) new tokens (or the
+        input mode's ``embeds``, or ``image_embeds`` before the tokens) at
         ``batch["positions"]`` (b, s), or at q_offset + arange(s) in every
         row when ``q_offset`` is given instead. Prefill = long s into empty
         caches; decode = s == 1 into filled caches, updated in place.
@@ -228,6 +249,6 @@ class LM(Transformer):
             positions = torch.arange(q_offset, q_offset + s,
                                      dtype=torch.int32,
                                      device=x.device)[None].expand(b, s)
-        h = self.apply_stack(x, positions, impl=impl, caches=caches,
-                             q_offset=q_offset)
+        h, _ = self.apply_stack(x, positions, impl=impl, caches=caches,
+                                q_offset=q_offset)
         return self.logits_fn(h[:, -1:]), caches

@@ -1,10 +1,12 @@
 """Every architecture the port carries, against the JAX package:
 
 * each config module a copy of the reference's, and ``ARCHS`` every
-  dense-attention architecture of the reference with token input;
+  architecture of the reference whose blocks are global or
+  sliding-window GQA, in any input mode, with or without experts;
 * ``reduced(arch, repeats=2)`` initialised in JAX and loaded through
-  ``interop``: logits and loss to 1e-5 (f32), as
-  ``tests/test_arch_smoke.py`` runs the reference's;
+  ``interop``: logits and loss (with the router aux) to 1e-5 (f32), on a
+  batch of the arch's input mode, as ``tests/test_arch_smoke.py`` runs
+  the reference's;
 * ``models.counting``: the analytic parameter counts of all twelve
   reference configs (the function is duck-typed over the config), and
   ``ModelConfig.param_count`` / ``active_param_count``;
@@ -13,7 +15,8 @@
   lm-tiny;
 * a gemma3 checkpoint (every pattern position's stacked leaves) written by
   either package's ``Checkpointer`` and read by the other;
-* the block kinds still to port raise, naming their slice.
+* the block kinds still to port raise, naming their slice (the MoE's
+  cases are in ``tests/test_torch_moe.py``).
 """
 import dataclasses
 
@@ -59,11 +62,14 @@ def _one_thread():
 
 
 def test_archs_are_the_dense_attention_token_archs():
+    """Every reference architecture whose block kinds are global or
+    sliding-window GQA, in any input mode, with or without experts."""
     want = tuple(a for a in JAX_ARCHS
-                 if jax_get_config(a).input_mode == "tokens"
-                 and not jax_get_config(a).moe.n_experts
-                 and set(jax_get_config(a).block_kinds) <= set(DENSE))
+                 if set(jax_get_config(a).block_kinds) <= set(DENSE))
     assert ARCHS == want
+    assert {jax_get_config(a).input_mode for a in ARCHS} == {
+        "tokens", "embeddings", "tokens+image"}
+    assert any(jax_get_config(a).moe.n_experts for a in ARCHS)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -84,6 +90,24 @@ def test_count_params_equals_reference(arch):
             jax_counting.count_params(jcfg, active_only=active)
 
 
+def _batch(cfg, rng, b=2, s=40):
+    """A batch of the config's input mode, 40 positions in all, as
+    ``tests/test_arch_smoke.py`` builds the reference's."""
+    n_img = cfg.n_prefix_embeds if cfg.input_mode == "tokens+image" else 0
+    batch = {"labels": rng.integers(0, cfg.vocab_size,
+                                    (b, s - n_img)).astype(np.int32)}
+    if cfg.input_mode == "embeddings":
+        batch["embeds"] = (rng.normal(size=(b, s, cfg.d_model))
+                           * 0.02).astype(np.float32)
+    else:
+        batch["tokens"] = rng.integers(0, cfg.vocab_size,
+                                       (b, s - n_img)).astype(np.int32)
+    if n_img:
+        batch["image_embeds"] = (rng.normal(size=(b, n_img, cfg.d_model))
+                                 * 0.02).astype(np.float32)
+    return batch
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_reduced_forward_and_loss_match_reference(arch):
     jcfg = jax_reduced(jax_get_config(arch), repeats=2)
@@ -94,10 +118,7 @@ def test_reduced_forward_and_loss_match_reference(arch):
     lm = interop.params_from_numpy(
         {k: np.asarray(v) for k, v in flat.items()}, cfg, "cpu")
     assert sum(p.numel() for p in lm.parameters()) == cfg.param_count()
-    rng = np.random.default_rng(len(arch))
-    batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, 40)),
-             "labels": rng.integers(0, cfg.vocab_size, (2, 40))}
-    batch = {k: v.astype(np.int32) for k, v in batch.items()}
+    batch = _batch(cfg, np.random.default_rng(len(arch)))
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
     tb = {k: torch.from_numpy(v) for k, v in batch.items()}
     jloss, _ = jlm.loss(params, jb, remat=False)
@@ -191,7 +212,6 @@ def test_gemma3_prod_step_matches_reference():
 
 @pytest.mark.parametrize("arch,match", [
     ("deepseek-v2-236b", "MLA slice"),
-    ("granite-moe-3b-a800m", "MoE slice"),
     ("zamba2-1.2b", "SSM slice"),
     ("xlstm-350m", "xLSTM slice"),
 ])
